@@ -1,0 +1,4 @@
+from metatransformer_tpu_torch.models import (  # noqa: F401
+    classifier,
+    image_classifier,
+)

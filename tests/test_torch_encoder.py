@@ -1,0 +1,260 @@
+"""Encoder and converter of the PyTorch port vs the JAX reference and the
+torch oracle (tests/torch_ref.py).
+
+Weights travel JAX -> numpy -> ``convert.from_numpy``; inputs come from
+seeded numpy. The JAX fused sublayers run in Pallas interpret mode."""
+
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from metatransformer_tpu.core import convert as jconvert
+from metatransformer_tpu.core import encoder as jenc
+from metatransformer_tpu_torch.core import convert, encoder as enc
+
+from . import torch_ref
+
+torch.set_num_threads(1)
+
+
+def _pair(dim, depth, heads, seed=0):
+    """torch oracle blocks + the same weights as a numpy tree."""
+    blocks = torch_ref.make_encoder(dim, depth, heads, seed)
+    state = {k: v.detach().numpy() for k, v in blocks.state_dict().items()}
+    return blocks, jconvert.convert_state_dict(state)
+
+
+def _jax_encode(np_params, x, cfg, **kw):
+    params = {k: jnp.asarray(v) for k, v in np_params.items()}
+    return np.asarray(jenc.encode(params, jnp.asarray(x), cfg, **kw), np.float32)
+
+
+def _port_encode(np_params, x, cfg, **kw):
+    params = convert.from_numpy(np_params)
+    kw = {k: (torch.tensor(v) if isinstance(v, np.ndarray) else v) for k, v in kw.items()}
+    return enc.encode(params, torch.tensor(x), cfg, **kw).float().numpy()
+
+
+def _cfgs(dim, depth, heads):
+    return (
+        jenc.EncoderConfig(dim=dim, depth=depth, num_heads=heads),
+        enc.EncoderConfig(dim=dim, depth=depth, num_heads=heads),
+    )
+
+
+def test_encode_fp32_matches_jax_and_torch():
+    jcfg, cfg = _cfgs(64, 3, 4)
+    blocks, np_params = _pair(64, 3, 4)
+    x = np.random.default_rng(1).standard_normal((2, 17, 64), dtype=np.float32)
+    got = _port_encode(np_params, x, cfg)
+    np.testing.assert_allclose(got, _jax_encode(np_params, x, jcfg), atol=1e-4)
+    with torch.no_grad():
+        want = blocks(torch.tensor(x)).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-4)
+
+
+def test_encode_fp32_masked_matches_jax_and_torch_on_kept_rows():
+    jcfg, cfg = _cfgs(64, 3, 4)
+    blocks, np_params = _pair(64, 3, 4, seed=1)
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((2, 12, 64), dtype=np.float32)
+    mask = np.ones((2, 12), bool)
+    mask[0, 8:] = False
+    mask[1, 5:] = False
+    got = _port_encode(np_params, x, cfg, mask=mask)
+    want_j = _jax_encode(np_params, x, jcfg, mask=jnp.asarray(mask))
+    with torch.no_grad():
+        h = torch.tensor(x)
+        for blk in blocks:
+            h = blk(h, torch.tensor(mask))
+    np.testing.assert_allclose(got[mask], want_j[mask], atol=1e-4)
+    np.testing.assert_allclose(got[mask], h.numpy()[mask], atol=1e-4)
+
+
+def test_encode_fp32_pos_each_block_matches_jax_and_torch():
+    jcfg, cfg = _cfgs(64, 3, 4)
+    blocks, np_params = _pair(64, 3, 4, seed=2)
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((2, 9, 64), dtype=np.float32)
+    pos = rng.standard_normal((1, 9, 64), dtype=np.float32)
+    got = _port_encode(np_params, x, cfg, pos=pos, pos_each_block=True)
+    want_j = _jax_encode(np_params, x, jcfg, pos=jnp.asarray(pos), pos_each_block=True)
+    with torch.no_grad():
+        h = torch.tensor(x)
+        for blk in blocks:
+            h = blk(h + torch.tensor(pos))
+    np.testing.assert_allclose(got, want_j, atol=1e-4)
+    np.testing.assert_allclose(got, h.numpy(), atol=1e-4)
+
+
+def test_encode_fp32_base_geometry_matches_jax_and_torch():
+    """Full ViT-B16 geometry (12 x 768, 12 heads), B=1, T=197."""
+    blocks, np_params = _pair(768, 12, 12)
+    x = np.random.default_rng(2).standard_normal((1, 197, 768), dtype=np.float32)
+    got = _port_encode(np_params, x, enc.BASE)
+    assert np.max(np.abs(got - _jax_encode(np_params, x, jenc.BASE))) <= 1e-3
+    with torch.no_grad():
+        want = blocks(torch.tensor(x)).numpy()
+    assert np.max(np.abs(got - want)) <= 1e-3
+
+
+def test_encode_bf16_fused_plain_matches_jax_fused():
+    """BF16 policy: the port's plain sublayers vs the JAX Pallas sublayers
+    (interpret mode), at the reference's bf16 drift bound."""
+    jcfg, cfg = _cfgs(128, 2, 2)
+    np_params = jax.tree.map(np.asarray, jenc.init(jcfg, jax.random.PRNGKey(0)))
+    x = np.random.default_rng(5).standard_normal((2, 197, 128), dtype=np.float32)
+    assert enc._resolve_impl(cfg, 197, enc.BF16) == "fused"
+    got = _port_encode(np_params, x, cfg, precision=enc.BF16)
+    want = _jax_encode(np_params, x, jcfg, precision=jenc.BF16)
+    np.testing.assert_allclose(got, want, atol=0.15, rtol=0.1)
+
+
+def test_encode_bf16_xla_path_matches_jax_xla():
+    jcfg = jenc.EncoderConfig(dim=64, depth=2, num_heads=4, attn_impl="xla")
+    cfg = enc.EncoderConfig(dim=64, depth=2, num_heads=4, attn_impl="xla")
+    _, np_params = _pair(64, 2, 4, seed=3)
+    rng = np.random.default_rng(6)
+    x = rng.standard_normal((2, 12, 64), dtype=np.float32)
+    mask = np.ones((2, 12), bool)
+    mask[1, 7:] = False
+    got = _port_encode(np_params, x, cfg, mask=mask, precision=enc.BF16)
+    want = _jax_encode(np_params, x, jcfg, mask=jnp.asarray(mask), precision=jenc.BF16)
+    np.testing.assert_allclose(got[mask], want[mask], atol=0.15, rtol=0.1)
+
+
+@pytest.mark.parametrize("t", [1, 17, 197, 257, 456, 457, 512, 1568])
+def test_resolve_impl_matches_jax(t):
+    for d, h in ((128, 2), (768, 12), (768, 32), (1024, 16), (96, 3), (1024, 8)):
+        for impl in ("auto", "xla", "fused"):
+            jcfg = jenc.EncoderConfig(dim=d, depth=1, num_heads=h, attn_impl=impl)
+            cfg = enc.EncoderConfig(dim=d, depth=1, num_heads=h, attn_impl=impl)
+            for jp, p in ((jenc.FP32, enc.FP32), (jenc.BF16, enc.BF16)):
+                assert enc._resolve_impl(cfg, t, p) == jenc._resolve_impl(jcfg, t, jp)
+
+
+@pytest.mark.parametrize("impl", ["flash", "ring", "performer"])
+def test_unported_attention_paths_raise(impl):
+    cfg = enc.EncoderConfig(dim=64, depth=1, num_heads=4, attn_impl=impl)
+    params = enc.init(cfg, torch.Generator().manual_seed(0))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        enc.encode(params, torch.zeros(1, 5, 64), cfg)
+
+
+def test_auto_long_sequence_raises_instead_of_falling_back():
+    cfg = enc.EncoderConfig(dim=64, depth=1, num_heads=2)
+    params = enc.init(cfg, torch.Generator().manual_seed(0))
+    with pytest.raises(NotImplementedError, match="flash"):
+        enc.encode(params, torch.zeros(1, 512, 64), cfg)
+
+
+@pytest.mark.parametrize("remat", [True, "save"])
+def test_remat_raises(remat):
+    cfg = enc.EncoderConfig(dim=64, depth=1, num_heads=4)
+    params = enc.init(cfg, torch.Generator().manual_seed(0))
+    with pytest.raises(NotImplementedError, match="training"):
+        enc.encode(params, torch.zeros(1, 5, 64), cfg, remat=remat)
+
+
+def test_init_layout_matches_jax():
+    cfg = enc.EncoderConfig(dim=64, depth=3, num_heads=4)
+    jcfg = jenc.EncoderConfig(dim=64, depth=3, num_heads=4)
+    params = enc.init(cfg, torch.Generator().manual_seed(0))
+    jparams = jenc.init(jcfg, jax.random.PRNGKey(0))
+    assert enc.param_shapes(cfg) == jenc.param_shapes(jcfg)
+    assert set(params) == set(jparams)
+    for k, v in params.items():
+        assert tuple(v.shape) == jparams[k].shape, k
+    w = params["qkv_w"]
+    assert w.abs().max() <= 0.04 + 1e-6 and 0.015 < w.std() < 0.02
+    again = enc.init(cfg, torch.Generator().manual_seed(0))
+    assert all(torch.equal(params[k], again[k]) for k in params)
+
+
+def test_cast_params_once():
+    cfg = enc.EncoderConfig(dim=64, depth=1, num_heads=4)
+    params = enc.init(cfg, torch.Generator().manual_seed(0))
+    cast = enc.cast_params(params, enc.BF16)
+    assert cast["qkv_w"].dtype == torch.bfloat16
+    assert cast["norm1_scale"].dtype == torch.float32
+    again = enc.cast_params(cast, enc.BF16)
+    assert all(again[k] is cast[k] for k in cast)
+    assert enc.cast_params(params, enc.FP32) is params
+
+
+def test_convert_state_dict_identical_to_jax():
+    blocks = torch_ref.make_encoder(64, 3, 4, seed=7)
+    state = {k: v.detach().numpy() for k, v in blocks.state_dict().items()}
+    got, want = convert.convert_state_dict(state), jconvert.convert_state_dict(state)
+    assert list(got) == list(want)
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k])
+    assert convert.infer_config(got) == enc.EncoderConfig(dim=64, depth=3, num_heads=1)
+    with pytest.raises(ValueError):
+        convert.convert_state_dict({"0.bogus.weight": np.zeros((2, 2))})
+    with pytest.raises(ValueError):
+        convert.convert_state_dict({"not_a_layer": np.zeros((2, 2))})
+
+
+def test_jax_npz_loads_identically(tmp_path):
+    params = jenc.init(jenc.EncoderConfig(128, 2, 2), jax.random.PRNGKey(0))
+    path = str(tmp_path / "enc.npz")
+    jconvert.save_npz(path, params)
+    loaded, cfg = convert.load_npz(path)
+    assert cfg == enc.EncoderConfig(128, 2, 2)
+    for k in params:
+        np.testing.assert_array_equal(loaded[k].numpy(), np.asarray(params[k]))
+    # and the port writes what the JAX package reads
+    path2 = str(tmp_path / "port.npz")
+    convert.save_npz(path2, loaded)
+    back, jcfg = jconvert.load_npz(path2)
+    assert jcfg == jenc.EncoderConfig(128, 2, 2)
+    for k in params:
+        np.testing.assert_array_equal(np.asarray(back[k]), np.asarray(params[k]))
+
+
+def test_convert_cli_matches_jax(tmp_path):
+    blocks = torch_ref.make_encoder(64, 2, 4, seed=8)
+    pth = str(tmp_path / "enc.pth")
+    torch.save(blocks.state_dict(), pth)
+    convert.main([pth, str(tmp_path / "port.npz")])
+    jconvert.main([pth, str(tmp_path / "jax.npz")])
+    with np.load(tmp_path / "port.npz") as a, np.load(tmp_path / "jax.npz") as b:
+        assert sorted(a.files) == sorted(b.files)
+        for k in a.files:
+            np.testing.assert_array_equal(a[k], b[k])
+    params, cfg = convert.convert_pth(pth)
+    assert cfg.dim == 64 and params["qkv_w"].shape == (2, 64, 192)
+
+
+def test_to_numpy_inverts_from_numpy():
+    tree = {"a": np.arange(6, dtype=np.float32).reshape(2, 3), "b": {"c": np.ones(2)}}
+    back = convert.to_numpy(convert.from_numpy(tree))
+    np.testing.assert_array_equal(back["a"], tree["a"])
+    np.testing.assert_array_equal(back["b"]["c"], tree["b"]["c"])
+    bf = convert.to_numpy({"w": torch.tensor([1.5, -2.0], dtype=torch.bfloat16)})
+    assert bf["w"].dtype == np.float32
+
+
+def test_port_never_imports_jax():
+    code = (
+        "import sys, pkgutil, importlib, metatransformer_tpu_torch as p\n"
+        "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', "
+        "'metatransformer_tpu.')) or m == 'metatransformer_tpu']\n"
+        "assert not bad, bad\n"
+        "print(len([m for m in sys.modules if m.startswith(p.__name__)]))\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, timeout=120,
+        cwd=Path(__file__).resolve().parent.parent,
+    )
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout) >= 13
