@@ -1,7 +1,8 @@
 """Chip smoke test of the PyTorch/CUDA port: drives the ViT-B16 image
-serving path on one NVIDIA GPU through the hand-written kernels.
+serving path and the ViT-B16 training step (frozen-encoder and full
+fine-tune) on one NVIDIA GPU through the hand-written kernels.
 
-    python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py [--seed N] [--profile]
 
 Phases (any failed check raises, so the process exits non-zero):
 
@@ -9,13 +10,24 @@ Phases (any failed check raises, so the process exits non-zero):
    off for fp32 matmuls and convolutions;
 2. build the kernels from ``metatransformer_tpu_torch/ops/csrc``;
 3. hold each kernel against its plain PyTorch version, computed in fp32
-   from the same bf16 inputs, at the serving path's shapes;
-4. serve a few uint8 image batches (b = 1, 8, 128) through a full-width
+   from the same bf16 inputs, at the main path's shapes; the backward
+   kernel is launched twice and must repeat bit for bit;
+4. hold both autograd Functions (attention and MLP sublayer) against
+   autograd through the plain versions in fp32;
+5. serve a few uint8 image batches (b = 1, 8, 128) through a full-width
    ViT-B16 classifier (seeded random weights, 1000 classes), count the
    kernel launches of that run, and hold the logits against the same model
    run with the plain versions on the card;
-5. time each kernel and its plain version, and the whole forward;
-6. print one JSON line describing the kernels, then the result line.
+6. time each kernel, its plain version and the library composition of the
+   same function, and the whole forward;
+7. train: for each track build the full-width model through
+   ``image_classifier.init`` and ``Trainer`` (no device named: both land on
+   the card), take 6 AdamW steps on one fixed batch of 128, count the kernel
+   launches and weight-gradient products of each step, and hold the first 2
+   steps against the same run with the plain versions on the card;
+8. time one optimizer step of each track, with its peak memory; with
+   ``--profile``, device time by kernel of a full-track step;
+9. print one JSON line describing the kernels, then the result line.
 
 It imports nothing of JAX. Without a CUDA card it raises before printing
 any result.
@@ -30,31 +42,68 @@ import subprocess
 import time
 from unittest import mock
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 D, HEADS, T, MLP = 768, 12, 197, 3072
+HD = D // HEADS
 LN_EPS = 1e-5
 KERNEL_BATCHES = (1, 8, 128)
 SERVE_BATCHES = (1, 8, 128)
+TRAIN_BATCH, TRAIN_STEPS, COMPARE_STEPS = 128, 6, 2
 # Kernel vs its plain version computed in fp32 from the same bf16 inputs:
 # max abs error 3e-2, about 4 bf16 ulps at |x| ~ 1. It covers the kernel's
 # own bf16 roundings (LN output, q/k/v, P, the attention output, the GELU
 # output and the result); outputs reach |x| ~ 7, where rounding the
 # result alone costs up to 1.6e-2.
 KERNEL_TOL = 3e-2
+# The backward kernel's six outputs span |x| from ~1 (o) to several
+# hundred (dbeta summed over 25216 rows), so its bound is relative: max abs
+# error over max |value| of the fp32 plain version. The card measures at
+# most 0.0078 at these shapes (o under the ragged mask; dqkv, three bf16
+# roundings deep, 0.0077); the bound is about twice that, and six times
+# tighter than the 0.1 of the reference's own bf16 backward test.
+BWD_REL_TOL = 1.6e-2
+# Gradients of the two autograd Functions vs autograd through the fp32 plain
+# versions, relative to each gradient's max |value|: the weight gradients add
+# a bf16 library matmul over bf16-rounded xn, dqkv, o to the kernel's error.
+# The card measures at most 0.0049; the bound is about twice that.
+GRAD_REL_TOL = 1e-2
 # Served logits vs the plain-version model: the drift bound of the
 # reference's fused-vs-XLA bf16 encoder test (tests/test_fused_block.py).
 LOGIT_ATOL, LOGIT_RTOL = 0.15, 0.1
+# Training, kernels vs plain versions on the card: per-step losses within
+# LOSS_TOL. The update of the largest trainable leaf after COMPARE_STEPS
+# steps is held elementwise at rtol 0.1 and an atol of one bf16 ulp of the
+# largest weight. AdamW's first updates are lr * g / |g| per element, so
+# where a gradient element is smaller than its own bf16 rounding noise the
+# two runs take full-size steps in opposite directions; the check therefore
+# asks for UPDATE_MIN_FRACTION of the elements inside the bound and for the
+# whole update within UPDATE_REL_L2 in relative L2 norm. The card measures
+# 0.9993 / 0.028 on the frozen track and 0.9944 / 0.094 on the full track.
+LOSS_TOL = 0.05
+UPDATE_RTOL, UPDATE_MIN_FRACTION, UPDATE_REL_L2 = 0.1, 0.98, 0.2
+# AdamW rates of the training check. The frozen track runs the recipe of
+# scripts/bench_train.py, 1e-3. Full fine-tuning at 1e-3 with no warm-up
+# swings on one fixed batch (6 steps on an H100: 7.38 5.41 7.03 4.78 2.73
+# 6.05), so its check runs at 1e-4, where the loss falls at every step. The
+# timed steps use 1e-3 on both tracks: the rate does not change the work.
+CHECK_LR = {"frozen": 1e-3, "full": 1e-4}
 TIMING_REPS = 20
+# Published dense peaks of one H100 SXM: bf16 tensor-core rate, HBM rate.
+PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12
 
+CSRC = "metatransformer_tpu_torch/ops/csrc/"
 KERNELS = {
-    "attn_sublayer": "metatransformer_tpu/ops/fused_block.py:82",
-    "mlp_sublayer": "metatransformer_tpu/ops/fused_block.py:562",
+    "attn_sublayer": ("metatransformer_tpu/ops/fused_block.py:82", CSRC + "fused_block.cu"),
+    "mlp_sublayer": ("metatransformer_tpu/ops/fused_block.py:562", CSRC + "fused_block.cu"),
+    "attn_sublayer_bwd": (
+        "metatransformer_tpu/ops/fused_block.py:310", CSRC + "fused_block_bwd.cu"),
 }
-SOURCE = "metatransformer_tpu_torch/ops/csrc/fused_block.cu"
 
 
-def phase_device() -> str:
+def phase_device() -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA card: chip_smoke.py runs only on a GPU")
     smi = subprocess.run(
@@ -66,7 +115,6 @@ def phase_device() -> str:
     torch.backends.cudnn.allow_tf32 = False
     print("tf32: off for fp32 matmuls and cuDNN convolutions", flush=True)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
-    return torch.cuda.get_device_name(0)
 
 
 def phase_build():
@@ -74,8 +122,13 @@ def phase_build():
 
     t0 = time.perf_counter()
     _build.library()
-    print(f"build: {_build.library_path().name} in {time.perf_counter() - t0:.2f} s",
-          flush=True)
+    names = ", ".join(p.name for p in _build.library_paths().values())
+    print(f"build: {names} in {time.perf_counter() - t0:.2f} s", flush=True)
+
+
+# --------------------------------------------------------------------------
+# Kernels against their plain versions
+# --------------------------------------------------------------------------
 
 
 def _sublayer_inputs(kind: str, b: int, seed: int, dev):
@@ -83,7 +136,7 @@ def _sublayer_inputs(kind: str, b: int, seed: int, dev):
     fan_in**-0.5 so every product stays O(1)."""
     g = torch.Generator().manual_seed(seed)
     randn = lambda *s: torch.randn(*s, generator=g)
-    hidden, out_in = (3 * D, D) if kind == "attn_sublayer" else (MLP, MLP)
+    hidden, out_in = (MLP, MLP) if kind == "mlp_sublayer" else (3 * D, D)
     bf = torch.bfloat16
     return (
         randn(b, T, D).to(dev, bf),
@@ -96,14 +149,27 @@ def _sublayer_inputs(kind: str, b: int, seed: int, dev):
     )
 
 
+def _bwd_inputs(b: int, seed: int, dev):
+    """The backward kernel's arguments: the attention inputs without proj_b,
+    and a unit-scale cotangent g after x."""
+    x, lns, lnb, wqkv, bqkv, wproj, _ = _sublayer_inputs("attn_sublayer", b, seed, dev)
+    g = torch.randn(b, T, D, generator=torch.Generator().manual_seed(seed + 7))
+    return (x, g.to(dev, torch.bfloat16), lns, lnb, wqkv, bqkv, wproj)
+
+
 def _pair(kind: str):
     from metatransformer_tpu_torch.ops import fused_block as fb
 
+    kw = dict(num_heads=HEADS, ln_eps=LN_EPS)
     if kind == "attn_sublayer":
-        kw = dict(num_heads=HEADS, ln_eps=LN_EPS)
         return (
             lambda a, bias=None: fb.attn_sublayer_cuda(*a, bias, **kw),
             lambda a, bias=None: fb.attn_sublayer_plain(*a, bias, **kw),
+        )
+    if kind == "attn_sublayer_bwd":
+        return (
+            lambda a, bias=None: fb.attn_sublayer_bwd_cuda(*a, bias, **kw),
+            lambda a, bias=None: fb.attn_sublayer_bwd_plain(*a, bias, **kw),
         )
     return (
         lambda a, bias=None: fb.mlp_sublayer_cuda(*a, ln_eps=LN_EPS),
@@ -111,18 +177,22 @@ def _pair(kind: str):
     )
 
 
-def phase_kernels(seed: int, dev) -> dict:
+def _ragged_bias(dev):
     from metatransformer_tpu_torch.ops import fused_block as fb
 
+    keep = torch.ones(8, T, dtype=torch.bool, device=dev)
+    for i in range(8):
+        keep[i, T - 23 * i:] = False  # ragged: 197, 174, ..., 36 kept
+    return torch.where(keep, 0.0, fb.NEG_INF).float()
+
+
+def phase_kernels(seed: int, dev) -> dict:
     worst = {}
-    for kind in KERNELS:
+    for kind in ("attn_sublayer", "mlp_sublayer"):
         kernel, plain = _pair(kind)
         cases = [(b, None) for b in KERNEL_BATCHES]
         if kind == "attn_sublayer":
-            keep = torch.ones(8, T, dtype=torch.bool, device=dev)
-            for i in range(8):
-                keep[i, T - 23 * i:] = False  # ragged: 197, 174, ..., 36 kept
-            cases.append((8, torch.where(keep, 0.0, fb.NEG_INF).float()))
+            cases.append((8, _ragged_bias(dev)))
         worst[kind] = 0.0
         for b, bias in cases:
             args = _sublayer_inputs(kind, b, seed + b, dev)
@@ -140,7 +210,95 @@ def phase_kernels(seed: int, dev) -> dict:
             if max_abs > KERNEL_TOL:
                 raise AssertionError(f"{kind} b={b} {tag}: kernel disagrees with plain")
             worst[kind] = max(worst[kind], max_abs)
+    worst["attn_sublayer_bwd"] = phase_bwd_kernel(seed, dev)
     return worst
+
+
+def phase_bwd_kernel(seed: int, dev) -> float:
+    """All six outputs of the backward kernel vs its fp32 plain version;
+    two launches must agree bit for bit (the dgamma / dbeta reduction has a
+    fixed order and no atomics). Returns the worst absolute error."""
+    kernel, plain = _pair("attn_sublayer_bwd")
+    names = ("dx", "dqkv", "xn", "o", "dlns", "dlnb")
+    worst_abs = 0.0
+    for b, bias in [(b, None) for b in KERNEL_BATCHES] + [(8, _ragged_bias(dev))]:
+        args = _bwd_inputs(b, seed + b, dev)
+        with torch.no_grad():
+            got = kernel(args, bias)
+            again = kernel(args, bias)
+            torch.cuda.synchronize()
+            want = plain([a.float() for a in args], bias)
+        tag = "masked" if bias is not None else "dense"
+        parts = []
+        for name, g, g2, w in zip(names, got, again, want):
+            g = g.float()
+            if not torch.isfinite(g).all():
+                raise AssertionError(f"attn_sublayer_bwd b={b} {tag}: non-finite {name}")
+            if not torch.equal(g, g2.float()):
+                raise AssertionError(f"attn_sublayer_bwd b={b} {tag}: {name} does not repeat")
+            err, scale = (g - w).abs().max().item(), w.abs().max().item()
+            parts.append(f"{name} {err / scale:.4g} (abs {err:.4g}, max |x| {scale:.4g})")
+            if err > BWD_REL_TOL * scale:
+                raise AssertionError(
+                    f"attn_sublayer_bwd b={b} {tag}: {name} rel err {err / scale:.4g} "
+                    f"> {BWD_REL_TOL}")
+            worst_abs = max(worst_abs, err)
+        print(f"attn_sublayer_bwd b={b} {tag}: rel err vs the fp32 plain version "
+              f"(tol {BWD_REL_TOL}), bit-equal on a second launch: " + "; ".join(parts),
+              flush=True)
+    return worst_abs
+
+
+def phase_autograd(seed: int, dev):
+    """Seven gradients of each autograd Function on the card vs autograd
+    through the plain version in fp32 from the same bf16 inputs."""
+    from metatransformer_tpu_torch.ops import fused_block as fb
+
+    names = ("x", "ln_scale", "ln_bias", "w_in", "b_in", "w_out", "b_out")
+    for kind, op, plain in (
+        ("attn_sublayer", lambda a: fb.attn_sublayer(*a, num_heads=HEADS, ln_eps=LN_EPS),
+         lambda a: fb.attn_sublayer_plain(*a, None, num_heads=HEADS, ln_eps=LN_EPS)),
+        ("mlp_sublayer", lambda a: fb.mlp_sublayer(*a, ln_eps=LN_EPS),
+         lambda a: fb.mlp_sublayer_plain(*a, ln_eps=LN_EPS)),
+    ):
+        args = _sublayer_inputs(kind, 8, seed + 3, dev)
+        g = torch.randn(8, T, D, generator=torch.Generator().manual_seed(seed + 4)).to(dev)
+        leaves = [a.clone().requires_grad_(True) for a in args]
+        op(leaves).backward(g.to(torch.bfloat16))
+        ref = [a.float().requires_grad_(True) for a in args]
+        plain(ref).backward(g.to(torch.bfloat16).float())
+        torch.cuda.synchronize()
+        parts = []
+        for name, leaf, want in zip(names, leaves, ref):
+            if leaf.grad is None or leaf.grad.dtype != leaf.dtype:
+                raise AssertionError(f"{kind}: gradient of {name} missing or of wrong dtype")
+            err = (leaf.grad.float() - want.grad).abs().max().item()
+            scale = want.grad.abs().max().item()
+            parts.append(f"{name} {err / scale:.4g}")
+            if not err <= GRAD_REL_TOL * scale:
+                raise AssertionError(f"{kind}: gradient of {name} rel err {err / scale:.4g}")
+        print(f"{kind} autograd b=8: rel err of 7 gradients vs fp32 autograd through the "
+              f"plain version (tol {GRAD_REL_TOL}): " + ", ".join(parts), flush=True)
+
+
+# --------------------------------------------------------------------------
+# Serving
+# --------------------------------------------------------------------------
+
+
+def _plain_versions():
+    """Context: the CUDA entries replaced by the plain versions (which run
+    on the card's tensors with library ops)."""
+    from contextlib import ExitStack
+
+    from metatransformer_tpu_torch.ops import fused_block as fb
+
+    stack = ExitStack()
+    for cuda, plain in (("attn_sublayer_cuda", fb.attn_sublayer_plain),
+                        ("mlp_sublayer_cuda", fb.mlp_sublayer_plain),
+                        ("attn_sublayer_bwd_cuda", fb.attn_sublayer_bwd_plain)):
+        stack.enter_context(mock.patch.object(fb, cuda, plain))
+    return stack
 
 
 def _serve(model, requests, dev):
@@ -158,8 +316,10 @@ def phase_serve(seed: int, dev):
     from metatransformer_tpu_torch.ops import fused_block as fb
 
     cfg = ic.ImageClassifierConfig()  # ViT-B16, 224^2, patch 16, 1000 classes
-    params = ic.init(cfg, torch.Generator().manual_seed(seed))
-    model = ic.ImageClassifier(cfg, params, precision=enc.BF16, device=dev)
+    params = ic.init(cfg, torch.Generator().manual_seed(seed))  # lands on the card
+    model = ic.ImageClassifier(cfg, params, precision=enc.BF16)
+    if next(model.buffers()).device.type != "cuda":
+        raise AssertionError("the model did not land on the card")
     g = torch.Generator().manual_seed(seed + 1)
     requests = [
         torch.randint(0, 256, (b, 224, 224, 3), generator=g, dtype=torch.uint8)
@@ -175,15 +335,14 @@ def phase_serve(seed: int, dev):
     torch.cuda.synchronize()
     launches = fb.launch_counts()
     print(f"served {len(requests)} requests, kernel launches {launches}", flush=True)
-    for kind in launches:
+    for kind in ("attn_sublayer", "mlp_sublayer"):
         counts = [c[kind] for c in per_request]
         grew = [b - a for a, b in zip([0] + counts, counts)]
         if grew != [depth] * len(requests):
             raise AssertionError(f"{kind}: launches per forward {grew}, expected {depth}")
 
     # The same model with the plain versions on the card, request by request.
-    with mock.patch.object(fb, "attn_sublayer_cuda", fb.attn_sublayer_plain), \
-            mock.patch.object(fb, "mlp_sublayer_cuda", fb.mlp_sublayer_plain):
+    with _plain_versions():
         want = _serve(model, requests, dev)
     for (logits, top5), (ref, ref_top5), images in zip(answers, want, requests):
         b = images.shape[0]
@@ -198,6 +357,132 @@ def phase_serve(seed: int, dev):
               f"{top5[0].tolist()}", flush=True)
         torch.testing.assert_close(logits, ref, atol=LOGIT_ATOL, rtol=LOGIT_RTOL)
     return model, launches
+
+
+# --------------------------------------------------------------------------
+# Training
+# --------------------------------------------------------------------------
+
+
+def _train_batch():
+    """One fixed batch, as scripts/bench_train.py makes it: float images
+    from numpy's default_rng(0), labels arange(B) % 1000."""
+    images = np.random.default_rng(0).standard_normal(
+        (TRAIN_BATCH, 224, 224, 3), np.float32)
+    labels = np.arange(TRAIN_BATCH, dtype=np.int64) % 1000
+    return {"input": images, "label": labels}
+
+
+def _make_trainer(track: str, seed: int, lr: float = 1e-3):
+    """Full-width ViT-B16 through the port's entry points; no device is
+    named anywhere, so parameters, optimizer state and batches are on the
+    card. AdamW at ``lr``, weight decay 0.05, BF16 policy."""
+    from metatransformer_tpu_torch.core import encoder as enc
+    from metatransformer_tpu_torch.models import image_classifier as ic
+    from metatransformer_tpu_torch.train import optim, step as step_lib
+    from metatransformer_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    cfg = ic.ImageClassifierConfig()
+    params = ic.init(cfg, torch.Generator().manual_seed(seed))
+    frozen_keys = step_lib.FROZEN_KEYS if track == "frozen" else ()
+    if track == "frozen":  # a frozen encoder is cast once, outside the step
+        params["encoder"] = enc.cast_params(params["encoder"], enc.BF16)
+
+    def forward(p, x, generator):
+        return ic.forward(p, x, cfg, enc.BF16, train=True, generator=generator)
+
+    trainer = Trainer(
+        forward, optim.make_optimizer("adamw", lr=lr, weight_decay=0.05), params,
+        TrainerConfig(epochs=1, log_every=10**9), frozen_keys=frozen_keys,
+    )
+    if trainer.device.type != "cuda":
+        raise AssertionError("the trainer did not land on the card")
+    return trainer, cfg
+
+
+def _largest_leaf(tree):
+    from metatransformer_tpu_torch.train import optim
+
+    return max(optim.flatten_with_paths(tree), key=lambda kv: kv[1].numel())
+
+
+def phase_train(seed: int, dev) -> dict:
+    from metatransformer_tpu_torch.ops import fused_block as fb
+
+    batch = _train_batch()
+    launches = {}
+    for track in ("frozen", "full"):
+        trainer, cfg = _make_trainer(track, seed, CHECK_LR[track])
+        depth = cfg.encoder.depth
+        path, leaf = _largest_leaf(trainer.trainable)
+        start = leaf.detach().clone()
+        frozen_before = {k: v.clone() for k, v in trainer.frozen.get("encoder", {}).items()}
+
+        fb.reset_launch_counts()
+        losses, updates = [], None
+        for step in range(TRAIN_STEPS):
+            before, wg_before = fb.launch_counts(), fb.weight_grad_counts()
+            stats = trainer.train_epoch([batch])  # one optimizer step
+            losses.append(stats["loss"])
+            grew = {k: v - before[k] for k, v in fb.launch_counts().items()}
+            if grew != {k: depth for k in grew}:
+                raise AssertionError(f"{track} step {step}: kernel launches {grew}, "
+                                     f"expected {depth} of each")
+            wg = {k: v - wg_before[k] for k, v in fb.weight_grad_counts().items()}
+            want_wg = 0 if track == "frozen" else 4 * depth
+            if wg != {k: want_wg for k in wg}:
+                raise AssertionError(f"{track} step {step}: weight-gradient products {wg}, "
+                                     f"expected {want_wg} per sublayer kind")
+            if step == COMPARE_STEPS - 1:
+                updates = leaf.detach() - start
+        torch.cuda.synchronize()
+        launches[track] = fb.launch_counts()
+        print(f"train {track}: {TRAIN_STEPS} AdamW steps (lr {CHECK_LR[track]:g}) at batch "
+              f"{TRAIN_BATCH}, losses "
+              + " ".join(f"{v:.4f}" for v in losses)
+              + f"; launches {launches[track]}; weight-gradient products "
+              f"{fb.weight_grad_counts()}", flush=True)
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"{track}: non-finite loss")
+        if not all(b < a for a, b in zip(losses, losses[1:])):
+            raise AssertionError(f"{track}: loss did not fall at every step: {losses}")
+        for k, v in frozen_before.items():
+            now = trainer.frozen["encoder"][k]
+            if not torch.equal(now, v) or now.grad is not None or now.requires_grad:
+                raise AssertionError(f"{track}: frozen encoder leaf {k} changed")
+        del trainer
+
+        # The first steps again with the plain versions on the card.
+        ref_trainer, _ = _make_trainer(track, seed, CHECK_LR[track])
+        _, ref_leaf = _largest_leaf(ref_trainer.trainable)
+        with _plain_versions():
+            ref_losses = [ref_trainer.train_epoch([batch])["loss"]
+                          for _ in range(COMPARE_STEPS)]
+        ref_updates = ref_leaf.detach() - start
+        diffs = [abs(a - b) for a, b in zip(losses, ref_losses)]
+        # one bf16 ulp of the largest weight: 2**(floor(log2 |w|) - 7)
+        atol = 2.0 ** (int(np.floor(np.log2(start.abs().max().item()))) - 7)
+        inside = ((updates - ref_updates).abs()
+                  <= atol + UPDATE_RTOL * ref_updates.abs()).float().mean().item()
+        rel_l2 = ((updates - ref_updates).norm() / ref_updates.norm()).item()
+        print(f"train {track} vs plain versions, {COMPARE_STEPS} steps: |loss diff| "
+              + " ".join(f"{v:.5f}" for v in diffs)
+              + f" (tol {LOSS_TOL}); update of {'/'.join(path)} {tuple(leaf.shape)}: "
+              f"{inside:.4f} of elements within rtol {UPDATE_RTOL} + atol {atol:.3g} "
+              f"(min {UPDATE_MIN_FRACTION}), relative L2 {rel_l2:.4f} (max {UPDATE_REL_L2})",
+              flush=True)
+        if max(diffs) > LOSS_TOL:
+            raise AssertionError(f"{track}: losses differ from the plain run: {diffs}")
+        if inside < UPDATE_MIN_FRACTION or not rel_l2 <= UPDATE_REL_L2:
+            raise AssertionError(f"{track}: update of {path} differs from the plain run")
+        del ref_trainer
+        torch.cuda.empty_cache()
+    return launches
+
+
+# --------------------------------------------------------------------------
+# Times and bounds
+# --------------------------------------------------------------------------
 
 
 def _median_ms(fn) -> float:
@@ -215,51 +500,187 @@ def _median_ms(fn) -> float:
     return statistics.median(times)
 
 
+def _library_attn(x, lns, lnb, wqkv, bqkv, wproj, bproj):
+    """The attention sublayer as a composition of PyTorch's own bf16 calls.
+    A yardstick only: nothing in the port calls it."""
+    b, t, d = x.shape
+    xn = F.layer_norm(x, (d,), lns.to(x.dtype), lnb.to(x.dtype), LN_EPS)
+    q, k, v = F.linear(xn, wqkv.t(), bqkv).reshape(b, t, 3, HEADS, HD).permute(2, 0, 3, 1, 4)
+    o = F.scaled_dot_product_attention(q, k, v).transpose(1, 2).reshape(b, t, d)
+    return x + F.linear(o, wproj.t(), bproj)
+
+
+def _library_mlp(x, lns, lnb, w1, b1, w2, b2):
+    xn = F.layer_norm(x, (x.shape[-1],), lns.to(x.dtype), lnb.to(x.dtype), LN_EPS)
+    return x + F.linear(F.gelu(F.linear(xn, w1.t(), b1)), w2.t(), b2)
+
+
+def _bounds(b: int) -> dict:
+    """The least time the card could take for each kernel's work at batch b:
+    the larger of operations / peak bf16 rate and bytes / peak memory rate,
+    each input read once and each output written once."""
+    m = b * T
+    attn_products = 2 * b * HEADS * T * T * HD  # one [T, T, hd] product, all heads
+    act = 2 * m * D  # one bf16 [B, T, D] tensor, bytes
+    ops = {
+        "attn_sublayer": 2 * m * D * 3 * D + 2 * m * D * D + 2 * attn_products,
+        "mlp_sublayer": 2 * 2 * m * D * MLP,
+        # QKV recompute, g Wproj^T, dqkv Wqkv^T, and s, o, dv, dp, dq, dk
+        "attn_sublayer_bwd": 2 * m * D * 3 * D + 2 * m * D * D + 2 * m * 3 * D * D
+        + 6 * attn_products,
+    }
+    nbytes = {
+        "attn_sublayer": 2 * act + 2 * (4 * D * D + 4 * D) + 8 * D,
+        "mlp_sublayer": 2 * act + 2 * (2 * D * MLP + MLP + D) + 8 * D,
+        # in: x, g, Wqkv, bqkv, Wproj, LN params; out: dx, xn, o, dqkv, dgamma, dbeta
+        "attn_sublayer_bwd": 2 * act + 2 * (4 * D * D + 3 * D) + 8 * D + 3 * act + 3 * act
+        + 8 * D,
+    }
+    out = {}
+    for k in ops:
+        t_ops, t_bytes = ops[k] / PEAK_FLOPS * 1e3, nbytes[k] / PEAK_BYTES * 1e3
+        out[k] = {"bound_ms": max(t_ops, t_bytes),
+                  "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                  "gflop": ops[k] / 1e9, "mbytes": nbytes[k] / 1e6}
+    return out
+
+
 def phase_times(model, seed: int, dev) -> dict:
     times = {}
-    with torch.no_grad():
-        for kind in KERNELS:
-            kernel, plain = _pair(kind)
-            args = _sublayer_inputs(kind, 128, seed, dev)
-            times[kind] = (_median_ms(lambda: kernel(args)), _median_ms(lambda: plain(args)))
-            print(f"{kind} b=128: kernel {times[kind][0]:.4f} ms, plain "
-                  f"{times[kind][1]:.4f} ms (median of {TIMING_REPS})", flush=True)
+    b = 128
+    bounds = _bounds(b)
+    for kind in KERNELS:
+        kernel, plain = _pair(kind)
+        if kind == "attn_sublayer_bwd":
+            args = _bwd_inputs(b, seed, dev)
+            x, g, lns, lnb, wqkv, bqkv, wproj = args
+            leaves = [a.clone().requires_grad_(True)
+                      for a in (x, lns, lnb, wqkv, bqkv, wproj, torch.zeros_like(lnb).bfloat16())]
+            out = _library_attn(*leaves)  # untimed forward; its graph is kept
+            library = lambda: torch.autograd.grad(out, leaves, g, retain_graph=True)
+            what = "backward of the composition (dx and 6 parameter gradients)"
+        else:
+            args = _sublayer_inputs(kind, b, seed, dev)
+            composition = _library_attn if kind == "attn_sublayer" else _library_mlp
+            library = lambda: composition(*args)
+            what = "composition"
+        with torch.no_grad():
+            ms, plain_ms = _median_ms(lambda: kernel(args)), _median_ms(lambda: plain(args))
+        if kind == "attn_sublayer_bwd":
+            lib_ms = _median_ms(library)
+            del out, leaves
+        else:
+            with torch.no_grad():
+                lib_ms = _median_ms(library)
+        bound = bounds[kind]
+        times[kind] = {"ms": ms, "plain_ms": plain_ms, "library_composition_ms": lib_ms,
+                       **{k: bound[k] for k in ("bound_ms", "bound_by")}}
+        print(f"{kind} b={b}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library {what} "
+              f"(layer_norm, linear, scaled_dot_product_attention, gelu in bf16; no single "
+              f"PyTorch call computes the sublayer) {lib_ms:.4f} ms, bound "
+              f"{bound['bound_ms']:.4f} ms by {bound['bound_by']} ({bound['gflop']:.2f} GFLOP, "
+              f"{bound['mbytes']:.1f} MB; {100 * bound['bound_ms'] / ms:.1f}% of the bound's "
+              f"rate) (median of {TIMING_REPS})", flush=True)
     g = torch.Generator().manual_seed(seed + 2)
-    for b in (128, 1):
-        images = torch.randint(0, 256, (b, 224, 224, 3), generator=g,
-                               dtype=torch.uint8).to(dev)
-        ms = _median_ms(lambda: model(images))
-        print(f"forward b={b}: {ms:.4f} ms, {b * 1000.0 / ms:.2f} seq/s "
-              f"(median of {TIMING_REPS}, uint8 on the card -> logits)", flush=True)
+    with torch.no_grad():
+        for b in (128, 1):
+            images = torch.randint(0, 256, (b, 224, 224, 3), generator=g,
+                                   dtype=torch.uint8).to(dev)
+            ms = _median_ms(lambda: model(images))
+            print(f"forward b={b}: {ms:.4f} ms, {b * 1000.0 / ms:.2f} seq/s "
+                  f"(median of {TIMING_REPS}, uint8 on the card -> logits)", flush=True)
     return times
+
+
+def phase_train_times(seed: int, dev, profile: bool):
+    batch = _train_batch()
+    for track in ("frozen", "full"):
+        trainer, _ = _make_trainer(track, seed)
+        on_card = trainer._to_device(batch)
+        step = lambda: trainer._step(trainer.trainable, trainer.frozen, on_card, None)
+        torch.cuda.reset_peak_memory_stats()
+        ms = _median_ms(step)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        print(f"train step {track} b={TRAIN_BATCH}: {ms:.4f} ms, "
+              f"{TRAIN_BATCH * 1000.0 / ms:.2f} seq/s, peak memory {peak:.3f} GiB "
+              f"(median of {TIMING_REPS} optimizer steps, batch on the card)", flush=True)
+        if profile and track == "full":
+            _profile_step(step)
+        del trainer
+        torch.cuda.empty_cache()
+
+
+def _profile_step(step, steps: int = 3):
+    """Device time by kernel over a few full-track steps (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+    wall_us = (time.perf_counter() - t0) * 1e6 / steps
+    rows = [(e.key, e.device_time_total / steps, e.count / steps)
+            for e in prof.key_averages() if e.device_time_total > 0]
+    busy = sum(r[1] for r in rows)
+    print(f"profile, full-track step: wall {wall_us:.1f} us/step under the profiler, "
+          f"device busy {busy:.1f} us/step, idle share {100 * (1 - busy / wall_us):.2f}%",
+          flush=True)
+    for key, us, count in sorted(rows, key=lambda r: -r[1])[:28]:
+        print(f"  {us:10.1f} us  {100 * us / busy:6.2f}%  x{count:6.1f}  {key[:110]}",
+              flush=True)
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--profile", action="store_true",
+                    help="also print device time by kernel of one full-track step")
     args = ap.parse_args()
 
-    card = phase_device()
+    phase_device()
     dev = torch.device("cuda", 0)
     phase_build()
     errs = phase_kernels(args.seed, dev)
-    model, launches = phase_serve(args.seed, dev)
+    phase_autograd(args.seed, dev)
+    model, serve_launches = phase_serve(args.seed, dev)
     times = phase_times(model, args.seed, dev)
+    del model
+    train_launches = phase_train(args.seed, dev)
+    torch.cuda.empty_cache()
+    phase_train_times(args.seed, dev, args.profile)
+
+    by_path = {"serve": serve_launches, **{f"train_{k}": v for k, v in train_launches.items()}}
+    on_path = {  # the kernels each path must have gone through
+        "serve": ("attn_sublayer", "mlp_sublayer"),
+        "train_frozen": tuple(KERNELS), "train_full": tuple(KERNELS),
+    }
+    for path, kinds in on_path.items():
+        for kind in kinds:
+            if by_path[path][kind] <= 0:
+                raise AssertionError(f"{path} never launched {kind}")
     print(json.dumps({"kernels": [
         {
             "name": name,
             "route": "cuda",
-            "source": SOURCE,
+            "source": source,
             "replaces": replaces,
-            "launches": launches[name],
+            "launches": sum(counts[name] for counts in by_path.values()),
+            "launches_by_path": {path: counts[name] for path, counts in by_path.items()},
             "max_abs_err": errs[name],
-            "ms": times[name][0],
-            "plain_ms": times[name][1],
+            "ms": times[name]["ms"],
+            "plain_ms": times[name]["plain_ms"],
+            "bound_ms": times[name]["bound_ms"],
+            "bound_by": times[name]["bound_by"],
+            "library_ms": None,  # no single PyTorch call computes a whole sublayer
+            "library_composition_ms": times[name]["library_composition_ms"],
         }
-        for name, replaces in KERNELS.items()
+        for name, (replaces, source) in KERNELS.items()
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": card, "count": torch.cuda.device_count(),
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
     }}), flush=True)
 
 

@@ -20,6 +20,7 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
+from metatransformer_tpu_torch.core import device as _device
 from metatransformer_tpu_torch.core import encoder as enc
 
 # timm Block key -> (our leaf name, needs transpose)
@@ -80,11 +81,16 @@ def infer_config(params: Mapping[str, Any]) -> enc.EncoderConfig:
     return enc.EncoderConfig(dim=dim, depth=depth, num_heads=dim // 64)
 
 
-def from_numpy(tree: Any, device: torch.device | str = "cpu") -> Any:
-    """Nested dict of numpy arrays -> the same nested dict of tensors (copies)."""
+def from_numpy(tree: Any, device: _device.Device = None, requires_grad: bool = False) -> Any:
+    """Nested dict of numpy arrays -> the same nested dict of tensors
+    (copies) on ``device`` (None: the card). With ``requires_grad`` every
+    floating leaf is a leaf tensor that takes a gradient, as a trainable
+    tree must be."""
+    device = _device.resolve(device)
     if isinstance(tree, Mapping):
-        return {k: from_numpy(v, device) for k, v in tree.items()}
-    return torch.tensor(np.asarray(tree), device=device)
+        return {k: from_numpy(v, device, requires_grad) for k, v in tree.items()}
+    t = torch.tensor(np.asarray(tree), device=device)
+    return t.requires_grad_(True) if requires_grad and t.is_floating_point() else t
 
 
 def to_numpy(tree: Any) -> Any:
@@ -108,7 +114,7 @@ def load_torch_checkpoint(path: str) -> Dict[str, np.ndarray]:
     return {k: v.detach().numpy() for k, v in state.items()}
 
 
-def convert_pth(path: str, device: torch.device | str = "cpu"):
+def convert_pth(path: str, device: _device.Device = None):
     """``.pth`` -> (stacked params on ``device``, config)."""
     np_params = convert_state_dict(load_torch_checkpoint(path))
     return from_numpy(np_params, device), infer_config(np_params)
@@ -118,7 +124,7 @@ def save_npz(path: str, params: Mapping[str, Any]) -> None:
     np.savez(path, **{k: np.asarray(v) for k, v in to_numpy(dict(params)).items()})
 
 
-def load_npz(path: str, device: torch.device | str = "cpu"):
+def load_npz(path: str, device: _device.Device = None):
     with np.load(path) as data:
         np_params = {k: data[k] for k in data.files}
     return from_numpy(np_params, device), infer_config(np_params)
@@ -132,7 +138,7 @@ def main(argv=None) -> None:
     p.add_argument("pth_in")
     p.add_argument("npz_out")
     args = p.parse_args(argv)
-    params, cfg = convert_pth(args.pth_in)
+    params, cfg = convert_pth(args.pth_in, device="cpu")  # a file-to-file tool
     save_npz(args.npz_out, params)
     print(f"converted {args.pth_in} -> {args.npz_out}  ({cfg})")
 

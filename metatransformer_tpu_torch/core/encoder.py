@@ -23,7 +23,9 @@ from typing import Any, Dict, Optional
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
+from metatransformer_tpu_torch.core import device as _device
 from metatransformer_tpu_torch.ops import fused_block as _fb
 
 Params = Dict[str, torch.Tensor]
@@ -71,7 +73,10 @@ class EncoderConfig:
     mlp_ratio: float = 4.0
     ln_eps: float = 1e-5  # torch nn.LayerNorm default
     attn_impl: str = "auto"  # "xla" | "fused" | "auto" (others not ported)
-    # Only False is ported; remat belongs to the training slice.
+    # Gradient checkpointing over the depth loop. False: off. True:
+    # recompute each block in the backward pass (activation memory O(1)
+    # blocks). "save": keep the block's intermediates for the backward; the
+    # fused sublayers recompute theirs, so "save" resolves "fused" to "xla".
     remat: Any = False
 
     @property
@@ -248,16 +253,17 @@ def param_shapes(cfg: EncoderConfig) -> Dict[str, tuple]:
 def init(
     cfg: EncoderConfig,
     generator: torch.Generator,
-    device: torch.device | str = "cpu",
+    device: _device.Device = None,
     dtype: torch.dtype = torch.float32,
 ) -> Params:
     """Random init (trunc-normal .02 weights, zeros bias, ones LN scale).
 
     The weights are drawn on the CPU from ``generator`` (a CPU generator)
-    and then moved to ``device``, so one seed gives the same weights on
-    every device. Real use loads the released checkpoint via
+    and then moved to ``device`` (None: the card), so one seed gives the
+    same weights on every device. Real use loads the released checkpoint via
     :mod:`metatransformer_tpu_torch.core.convert`.
     """
+    device = _device.resolve(device)
     params = {}
     for name, shape in param_shapes(cfg).items():
         full = (cfg.depth,) + shape
@@ -304,23 +310,35 @@ def encode(
       pos_each_block: if True, adds ``pos`` at the input of every block
         (point-cloud backbone semantics); if False and ``pos`` is given,
         adds it once before the stack.
-      remat: overrides ``cfg.remat`` when not None. Only False is ported.
+      remat: overrides ``cfg.remat`` when not None (see EncoderConfig).
     """
     if remat is None:
         remat = cfg.remat
-    if remat is not False:
-        raise NotImplementedError(
-            f"remat={remat!r} is not ported yet: ROADMAP.md queue 1, item 5 "
-            "(training)"
-        )
+    if remat == "save":
+        # Autograd keeps every intermediate of the plain block, which is
+        # what the reference's save policy asks of XLA. The fused sublayers
+        # keep none, so the policy only applies on the "xla" path.
+        impl = _resolve_impl(cfg, x.shape[1], precision)
+        if impl == "fused":
+            impl = "xla"
+        cfg = dataclasses.replace(cfg, attn_impl=impl)
     # The residual stream stays in the compute dtype; LN accumulates fp32.
     x = x.to(precision.compute_dtype)
     params = cast_params(params, precision)
     if pos is not None and not pos_each_block:
         x = x + pos.to(x.dtype)
+    # unbind, not v[i]: its backward is one stack per leaf, not a zero-filled
+    # [depth, ...] tensor per layer.
+    layers = {k: v.unbind(0) for k, v in params.items()}
     depth = params["norm1_scale"].shape[0]
     for i in range(depth):
         if pos_each_block and pos is not None:
             x = x + pos.to(x.dtype)
-        x = block(x, {k: v[i] for k, v in params.items()}, cfg, mask, precision)
+        p = {k: v[i] for k, v in layers.items()}
+        if remat is True and torch.is_grad_enabled():
+            x = torch.utils.checkpoint.checkpoint(
+                block, x, p, cfg, mask, precision, use_reentrant=False
+            )
+        else:
+            x = block(x, p, cfg, mask, precision)
     return x

@@ -13,6 +13,8 @@ from typing import Dict, Optional, Sequence
 
 import torch
 
+from metatransformer_tpu_torch.core import device as _device
+
 
 @dataclasses.dataclass(frozen=True)
 class ClsHeadConfig:
@@ -31,9 +33,10 @@ class ClsHeadConfig:
 def init(
     cfg: ClsHeadConfig,
     generator: torch.Generator,
-    device: torch.device | str = "cpu",
+    device: _device.Device = None,
 ) -> Dict[str, torch.Tensor]:
     """LN ones/zeros; Normal(0, din**-0.5) weights drawn on the CPU."""
+    device = _device.resolve(device)
     dims = [cfg.in_dim, *cfg.mlps, cfg.num_classes]
     params: Dict[str, torch.Tensor] = {}
     if cfg.use_norm:

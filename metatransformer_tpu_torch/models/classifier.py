@@ -12,6 +12,7 @@ from typing import Any, Callable, Dict, Optional
 
 import torch
 
+from metatransformer_tpu_torch.core import device as _device
 from metatransformer_tpu_torch.core import encoder as enc
 from metatransformer_tpu_torch.heads import cls as cls_head
 
@@ -34,9 +35,10 @@ class ClassifierConfig:
 def init_wrapper(
     cfg: ClassifierConfig,
     generator: torch.Generator,
-    device: torch.device | str = "cpu",
+    device: _device.Device = None,
 ) -> Dict[str, Any]:
     """Init everything except tokenizer + encoder (owned by their modules)."""
+    device = _device.resolve(device)
     t = cfg.seq_len + cfg.num_prefix_tokens
     d = cfg.encoder.dim
     params: Dict[str, Any] = {}

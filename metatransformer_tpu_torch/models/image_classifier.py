@@ -18,6 +18,7 @@ from typing import Any, Dict, Optional
 import torch
 from torch import nn
 
+from metatransformer_tpu_torch.core import device as _device
 from metatransformer_tpu_torch.core import encoder as enc
 from metatransformer_tpu_torch.heads import cls as cls_head
 from metatransformer_tpu_torch.models import classifier
@@ -47,9 +48,11 @@ class ImageClassifierConfig:
 def init(
     cfg: ImageClassifierConfig,
     generator: torch.Generator,
-    device: torch.device | str = "cpu",
+    device: _device.Device = None,
 ) -> Dict[str, Any]:
-    """Seeded random parameters (drawn on the CPU, then moved to ``device``)."""
+    """Seeded random parameters (drawn on the CPU, then moved to ``device``;
+    None: the card)."""
+    device = _device.resolve(device)
     params = classifier.init_wrapper(cfg.classifier, generator, device)
     params["tokenizer"] = image_tok.init(cfg.tokenizer, generator, device)
     params["encoder"] = enc.init(cfg.encoder, generator, device)
@@ -99,9 +102,10 @@ class ImageClassifier(nn.Module):
         params: Dict[str, Any],
         *,
         precision: enc.Precision = enc.FP32,
-        device: torch.device | str = "cpu",
+        device: _device.Device = None,
     ):
         super().__init__()
+        device = _device.resolve(device)
         self.cfg = cfg
         self.precision = precision
         params = dict(params)

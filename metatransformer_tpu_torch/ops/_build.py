@@ -1,11 +1,12 @@
 """Build and load the hand-written CUDA kernels of this package.
 
-The sources under ``csrc/`` are compiled by ``nvcc`` for ``sm_90a`` into a
-shared library with a plain C interface, at first use, and loaded with
-``ctypes``. The library lands in ``metatransformer_tpu_torch/_build/``
-under a name keyed by a hash of the sources and flags, so a changed source
-builds anew and an unchanged one is reused. There is no fallback: a
-missing ``nvcc`` or a failed build raises.
+Each source under ``csrc/`` is compiled by its own ``nvcc`` for ``sm_90a``
+into its own shared library with a plain C interface, all compilers started
+together, at first use, and loaded with ``ctypes``. A library lands in
+``metatransformer_tpu_torch/_build/`` under a name keyed by a hash of its
+source, the shared header and the flags, so a changed source builds anew
+and an unchanged one is reused. There is no fallback: a missing ``nvcc`` or
+a failed build raises.
 """
 
 from __future__ import annotations
@@ -17,10 +18,12 @@ import os
 import shutil
 import subprocess
 import tempfile
+import types
 from pathlib import Path
+from typing import Dict
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-_SOURCES = (_CSRC / "fused_block.cu",)
+_HEADERS = (_CSRC / "common.cuh",)
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -28,12 +31,22 @@ FLAGS = (
 )
 
 _vp, _int, _float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_SIGNATURES = {
-    # x, ln_s, ln_b, wqkv, bqkv, wproj, bproj, bias, xn, qkv, o, out,
-    # B, T, D, H, eps, stream
-    "mt_attn_sublayer": [_vp] * 12 + [_int] * 4 + [_float, _vp],
-    # x, ln_s, ln_b, w1, b1, w2, b2, xn, h, out, rows, D, F, eps, stream
-    "mt_mlp_sublayer": [_vp] * 10 + [_int] * 3 + [_float, _vp],
+# source -> {exported function: argument types}; every function returns int.
+_SOURCES = {
+    _CSRC / "fused_block.cu": {
+        # x, ln_s, ln_b, wqkv, bqkv, wproj, bproj, bias, xn, qkv, o, out,
+        # B, T, D, H, eps, stream
+        "mt_attn_sublayer": [_vp] * 12 + [_int] * 4 + [_float, _vp],
+        # x, ln_s, ln_b, w1, b1, w2, b2, xn, h, out, rows, D, F, eps, stream
+        "mt_mlp_sublayer": [_vp] * 10 + [_int] * 3 + [_float, _vp],
+    },
+    _CSRC / "fused_block_bwd.cu": {
+        # x, g, ln_s, ln_b, wqkv, bqkv, wproj, bias, dx, dqkv, xn, o, dgamma,
+        # dbeta, qkv, d_o, dxn, stats, row_stats, partial, B, T, D, H, eps,
+        # stream
+        "mt_attn_sublayer_bwd": [_vp] * 20 + [_int] * 4 + [_float, _vp],
+        "mt_ln_grad_chunks": [_int],
+    },
 }
 
 
@@ -47,40 +60,62 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def library_path() -> Path:
-    digest = hashlib.sha256(" ".join(FLAGS).encode())
+def library_paths() -> Dict[Path, Path]:
+    """source -> the keyed library built from it."""
+    common = hashlib.sha256(" ".join(FLAGS).encode())
+    for header in _HEADERS:
+        common.update(header.read_bytes())
+    paths = {}
     for src in _SOURCES:
+        digest = common.copy()
         digest.update(src.read_bytes())
-    return BUILD_DIR / f"libmt_kernels_{digest.hexdigest()[:16]}.so"
+        paths[src] = BUILD_DIR / f"libmt_{src.stem}_{digest.hexdigest()[:16]}.so"
+    return paths
 
 
-def build() -> Path:
-    """Compile the sources if the keyed library is missing; return its path."""
-    so = library_path()
-    if so.exists():
-        return so
+def build() -> Dict[Path, Path]:
+    """Compile every source whose keyed library is missing, one nvcc each,
+    all running at once; return source -> library."""
+    paths = library_paths()
+    missing = {src: so for src, so in paths.items() if not so.exists()}
+    if not missing:
+        return paths
+    nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *FLAGS, "-o", tmp, *map(str, _SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
+    running = []
+    for src, so in missing.items():
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        proc = subprocess.Popen(
+            [nvcc, *FLAGS, "-o", tmp, str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
         )
-    os.replace(tmp, so)  # atomic: a concurrent loader sees all or nothing
-    return so
+        running.append((src, so, tmp, proc))
+    errors = []
+    for src, so, tmp, proc in running:
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            errors.append(f"nvcc failed ({proc.returncode}) on {src.name}:\n{out}\n{err}")
+        else:
+            os.replace(tmp, so)  # atomic: a concurrent loader sees all or nothing
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return paths
 
 
 @functools.lru_cache(maxsize=1)
-def library() -> ctypes.CDLL:
-    """The loaded kernel library, built at first use."""
-    lib = ctypes.CDLL(str(build()))
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    lib.mt_error_string.argtypes = [ctypes.c_int]
-    lib.mt_error_string.restype = ctypes.c_char_p
-    return lib
+def library() -> types.SimpleNamespace:
+    """The kernels' C functions by name, built and loaded at first use."""
+    fns = types.SimpleNamespace()
+    for src, so in build().items():
+        lib = ctypes.CDLL(str(so))
+        for name, argtypes in _SOURCES[src].items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            setattr(fns, name, fn)
+        lib.mt_error_string.argtypes = [ctypes.c_int]
+        lib.mt_error_string.restype = ctypes.c_char_p
+        fns.mt_error_string = lib.mt_error_string
+    return fns

@@ -1,19 +1,30 @@
 """Fused transformer sublayers for short sequences: hand-written CUDA
 kernels for Hopper, each beside its plain PyTorch version.
 
-Port of ``metatransformer_tpu/ops/fused_block.py``, forward only:
+Port of ``metatransformer_tpu/ops/fused_block.py``:
 
 * :func:`attn_sublayer` computes ``x + proj(MHSA(LN(x)))`` and replaces
   the Pallas kernel ``_kernel`` (``ops/fused_block.py:82``);
 * :func:`mlp_sublayer` computes ``x + fc2(GELU(fc1(LN(x))))`` and
-  replaces ``_mlp_kernel`` (``ops/fused_block.py:562``).
+  replaces ``_mlp_kernel`` (``ops/fused_block.py:562``);
+* the backward of :func:`attn_sublayer` replaces ``_bwd_kernel``
+  (``ops/fused_block.py:310``) at the call boundary of ``_bwd_via_kernel``:
+  the kernel recomputes LayerNorm, QKV and softmax and emits dx, dqkv, xn,
+  o, dgamma, dbeta; the four weight-gradient reductions are library
+  matmuls and sums outside it, skipped where no gradient is needed.
 
 Dispatch depends only on where ``x`` lies. A CPU tensor runs the plain
-version (:func:`attn_sublayer_plain`, :func:`mlp_sublayer_plain`); a CUDA
-tensor launches the kernels of ``csrc/fused_block.cu`` or raises. There is
-no fallback between the two. Each CUDA wrapper counts its launches in a
-plain int attribute (``attn_sublayer_cuda.launches``), so a run can show
-that it went through the kernels.
+version (:func:`attn_sublayer_plain`, :func:`mlp_sublayer_plain`,
+:func:`attn_sublayer_bwd_plain`); a CUDA tensor launches the kernels of
+``csrc/`` or raises. There is no fallback between the two. Each CUDA
+wrapper counts its launches in a plain int attribute
+(``attn_sublayer_cuda.launches``), so a run can show that it went through
+the kernels.
+
+Both public ops are :class:`torch.autograd.Function` s. Neither keeps
+activations beyond its inputs: the attention backward is the kernel above,
+and the MLP backward recomputes LayerNorm, fc1 and GELU with library
+matmuls in the compute dtype (the reference leaves that step to XLA too).
 
 The plain versions round at the kernels' cast points: LayerNorm statistics
 in fp32; every matmul accumulates in fp32 over inputs in ``x.dtype`` and
@@ -22,11 +33,9 @@ softmax is normalised after P.V. Under fp32 they are the reference's
 kernels at fp32.
 
 One deliberate difference from the reference: the MLP uses exact erf GELU,
-as ``core.encoder.mlp`` and timm do. The Pallas kernel used the tanh form
-only because erf has no Pallas TPU lowering; Hopper has ``erff``.
-
-The backward kernel (reference ``_bwd_kernel``) belongs to the training
-slice; the CUDA wrappers refuse inputs that require grad.
+as ``core.encoder.mlp`` and timm do, in the forward and in the backward.
+The Pallas kernel used the tanh form only because erf has no Pallas TPU
+lowering; Hopper has ``erff``.
 """
 
 from __future__ import annotations
@@ -108,6 +117,65 @@ def mlp_sublayer_plain(x, ln_scale, ln_bias, fc1_w, fc1_b, fc2_w, fc2_b, *, ln_e
     return x + _linear_f32(h, fc2_w, fc2_b).to(dt)
 
 
+def _matmul_f32(a, b, dt):
+    """``a @ b`` accumulated in fp32 over operands rounded to ``dt``."""
+    return a.to(dt).float() @ b.to(dt).float()
+
+
+def attn_sublayer_bwd_plain(
+    x, g, ln_scale, ln_bias, qkv_w, qkv_b, proj_w, bias, *, num_heads, ln_eps
+):
+    """Plain version of the attention-sublayer backward kernel.
+
+    The body of the reference's ``_bwd_kernel`` step by step, with its cast
+    points. Returns ``(dx, dqkv, xn, o, dlns, dlnb)``: dx, xn, o [B, T, D]
+    and dqkv [B, T, 3D] in ``x.dtype``; dlns, dlnb [D] fp32.
+    """
+    b, t, d = x.shape
+    hd = d // num_heads
+    dt = x.dtype
+    scale = float(hd) ** -0.5
+    # 1. LayerNorm in fp32, QKV recompute
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mean).square().mean(dim=-1, keepdim=True)
+    rstd = torch.rsqrt(var + ln_eps)
+    xhat = (xf - mean) * rstd
+    gamma = ln_scale.float()
+    xn = (xhat * gamma + ln_bias.float()).to(dt)
+    qkv = _linear_f32(xn, qkv_w, qkv_b).to(dt).reshape(b, t, 3, num_heads, hd)
+    q, k, v = (a.transpose(1, 2).float() for a in qkv.unbind(2))  # [B, H, T, hd]
+    # 2. do = g Wproj^T
+    do = _matmul_f32(g, proj_w.t(), dt).to(dt)
+    do = do.reshape(b, t, num_heads, hd).transpose(1, 2).float()
+    # 3. attention backward per sample and head
+    s = (q * scale).to(dt).float() @ k.transpose(-1, -2)
+    if bias is not None:
+        s = s + bias[:, None, None, :]
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    p = e / e.sum(dim=-1, keepdim=True)
+    pb = p.to(dt).float()
+    o = (pb @ v).to(dt)
+    dv = (pb.transpose(-1, -2) @ do).to(dt)
+    dp = do @ v.transpose(-1, -2)
+    ds = (p * (dp - (dp * p).sum(dim=-1, keepdim=True))).to(dt).float()
+    dq = ((ds @ k) * scale).to(dt)
+    dk = ((ds.transpose(-1, -2) @ q) * scale).to(dt)  # the unscaled q
+    merge = lambda a: a.transpose(1, 2).reshape(b, t, d)
+    dqkv = torch.cat([merge(dq), merge(dk), merge(dv)], dim=-1)
+    o = merge(o)
+    # 4. dxn = dqkv Wqkv^T in fp32, LayerNorm backward
+    dxn = _matmul_f32(dqkv, qkv_w.t(), dt)
+    dxhat = dxn * gamma
+    mr1 = dxhat.mean(dim=-1, keepdim=True)
+    mr2 = (dxhat * xhat).mean(dim=-1, keepdim=True)
+    dx = (g.float() + rstd * (dxhat - mr1 - xhat * mr2)).to(dt)
+    # 5. LayerNorm parameter gradients over all rows
+    dlns = (dxn * xhat).sum(dim=(0, 1))
+    dlnb = dxn.sum(dim=(0, 1))
+    return dx, dqkv, xn, o, dlns, dlnb
+
+
 # --------------------------------------------------------------------------
 # CUDA wrappers
 # --------------------------------------------------------------------------
@@ -124,14 +192,6 @@ def _check(name, t, dtype, shape, device):
         raise ValueError(f"{name} must be contiguous and 16-byte aligned")
 
 
-def _check_no_grad(*tensors):
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            "the CUDA fused sublayers are forward-only: their backward kernel "
-            "belongs to the training slice (ROADMAP.md queue 2, kernel 3)"
-        )
-
-
 def _check_gemm_dims(k: int, n: int):
     # The GEMM loads 32-deep K slabs and 8-wide (16-byte) column chunks.
     if k % 32 or n % 8:
@@ -146,15 +206,7 @@ def _raise_on(rc: int, what: str):
         raise RuntimeError(f"{what} kernel launch failed: {msg} ({rc})")
 
 
-def attn_sublayer_cuda(
-    x, ln_scale, ln_bias, qkv_w, qkv_b, proj_w, proj_b, bias, *, num_heads, ln_eps
-):
-    """Launch the attention sublayer kernels (LayerNorm, QKV GEMM, attention
-    core, proj GEMM + residual). x, weights and matmul biases bf16; LN
-    params and the key bias fp32."""
-    from metatransformer_tpu_torch.ops import _build
-
-    _check_no_grad(x, ln_scale, ln_bias, qkv_w, qkv_b, proj_w, proj_b)
+def _check_attn_inputs(x, ln_scale, ln_bias, qkv_w, qkv_b, proj_w, bias, num_heads):
     if x.dim() != 3:
         raise ValueError(f"x must be [B, T, D], got {tuple(x.shape)}")
     b, t, d = x.shape
@@ -168,9 +220,22 @@ def attn_sublayer_cuda(
     _check("qkv_w", qkv_w, bf, (d, 3 * d), dev)
     _check("qkv_b", qkv_b, bf, (3 * d,), dev)
     _check("proj_w", proj_w, bf, (d, d), dev)
-    _check("proj_b", proj_b, bf, (d,), dev)
     if bias is not None:
         _check("bias", bias, f32, (b, t), dev)
+
+
+def attn_sublayer_cuda(
+    x, ln_scale, ln_bias, qkv_w, qkv_b, proj_w, proj_b, bias, *, num_heads, ln_eps
+):
+    """Launch the attention sublayer kernels (LayerNorm, QKV GEMM, attention
+    core, proj GEMM + residual). x, weights and matmul biases bf16; LN
+    params and the key bias fp32."""
+    from metatransformer_tpu_torch.ops import _build
+
+    _check_attn_inputs(x, ln_scale, ln_bias, qkv_w, qkv_b, proj_w, bias, num_heads)
+    b, t, d = x.shape
+    dev, bf = x.device, torch.bfloat16
+    _check("proj_b", proj_b, bf, (d,), dev)
     lib = _build.library()
     xn = torch.empty_like(x)
     qkv = torch.empty((b, t, 3 * d), dtype=bf, device=dev)
@@ -193,13 +258,55 @@ def attn_sublayer_cuda(
 attn_sublayer_cuda.launches = 0
 
 
+def attn_sublayer_bwd_cuda(
+    x, g, ln_scale, ln_bias, qkv_w, qkv_b, proj_w, bias, *, num_heads, ln_eps
+):
+    """Launch the attention-sublayer backward kernels. Same argument types
+    as :func:`attn_sublayer_cuda`, plus the output cotangent ``g`` (bf16,
+    like x). Returns ``(dx, dqkv, xn, o, dlns, dlnb)``."""
+    from metatransformer_tpu_torch.ops import _build
+
+    _check_attn_inputs(x, ln_scale, ln_bias, qkv_w, qkv_b, proj_w, bias, num_heads)
+    b, t, d = x.shape
+    dev, bf, f32 = x.device, torch.bfloat16, torch.float32
+    _check("g", g, bf, (b, t, d), dev)
+    lib = _build.library()
+    rows = b * t
+    empty = lambda shape, dtype: torch.empty(shape, dtype=dtype, device=dev)
+    dx, xn, o = torch.empty_like(x), torch.empty_like(x), torch.empty_like(x)
+    dqkv = empty((b, t, 3 * d), bf)
+    dlns, dlnb = empty((d,), f32), empty((d,), f32)
+    # scratch that never leaves this call
+    qkv, d_o = empty((b, t, 3 * d), bf), empty((b, t, d), bf)
+    dxn = empty((b, t, d), f32)
+    stats = empty((3, b, num_heads, t), f32)
+    row_stats = empty((2, rows), f32)
+    partial = empty((lib.mt_ln_grad_chunks(rows), 2, d), f32)
+    bias_ptr = None if bias is None else bias.data_ptr()
+    with torch.cuda.device(dev):  # the launches go to dev's current stream
+        rc = lib.mt_attn_sublayer_bwd(
+            x.data_ptr(), g.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(),
+            qkv_w.data_ptr(), qkv_b.data_ptr(), proj_w.data_ptr(), bias_ptr,
+            dx.data_ptr(), dqkv.data_ptr(), xn.data_ptr(), o.data_ptr(),
+            dlns.data_ptr(), dlnb.data_ptr(), qkv.data_ptr(), d_o.data_ptr(),
+            dxn.data_ptr(), stats.data_ptr(), row_stats.data_ptr(), partial.data_ptr(),
+            b, t, d, num_heads, ctypes.c_float(ln_eps),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _raise_on(rc, "attn_sublayer_bwd")
+    attn_sublayer_bwd_cuda.launches += 1
+    return dx, dqkv, xn, o, dlns, dlnb
+
+
+attn_sublayer_bwd_cuda.launches = 0
+
+
 def mlp_sublayer_cuda(x, ln_scale, ln_bias, fc1_w, fc1_b, fc2_w, fc2_b, *, ln_eps):
     """Launch the MLP sublayer kernels (LayerNorm, fc1 GEMM + GELU, fc2 GEMM
     + residual) on [..., D] rows. x, weights and biases bf16; LN params
     fp32."""
     from metatransformer_tpu_torch.ops import _build
 
-    _check_no_grad(x, ln_scale, ln_bias, fc1_w, fc1_b, fc2_w, fc2_b)
     d = x.shape[-1]
     rows = math.prod(x.shape[:-1])
     f = fc1_w.shape[-1]
@@ -233,20 +340,34 @@ def mlp_sublayer_cuda(x, ln_scale, ln_bias, fc1_w, fc1_b, fc2_w, fc2_b, *, ln_ep
 mlp_sublayer_cuda.launches = 0
 
 
+# Library weight-gradient products run by the two backward passes (four per
+# attention sublayer, four per MLP sublayer when every weight trains; none
+# under a frozen encoder). Counted so a run can show that they were skipped.
+_weight_grad_products = {"attn_sublayer": 0, "mlp_sublayer": 0}
+
+
+def weight_grad_counts() -> dict:
+    return dict(_weight_grad_products)
+
+
 def launch_counts() -> dict:
     return {
         "attn_sublayer": attn_sublayer_cuda.launches,
         "mlp_sublayer": mlp_sublayer_cuda.launches,
+        "attn_sublayer_bwd": attn_sublayer_bwd_cuda.launches,
     }
 
 
 def reset_launch_counts() -> None:
     attn_sublayer_cuda.launches = 0
     mlp_sublayer_cuda.launches = 0
+    attn_sublayer_bwd_cuda.launches = 0
+    for k in _weight_grad_products:
+        _weight_grad_products[k] = 0
 
 
 # --------------------------------------------------------------------------
-# Public ops: dispatch on the tensor's device
+# Dispatch on the tensor's device, and the gradient hookup
 # --------------------------------------------------------------------------
 
 
@@ -256,6 +377,106 @@ def _route(x: torch.Tensor, plain, cuda):
     if x.device.type == "cuda":
         return cuda
     raise NotImplementedError(f"fused sublayers run on cpu or cuda, not {x.device}")
+
+
+class _AttnSublayer(torch.autograd.Function):
+    """``attn_sublayer`` with the kernel backward. Saves only its inputs
+    (the residuals of the reference's ``_fused_fwd``)."""
+
+    @staticmethod
+    def forward(ctx, x, ln_scale, ln_bias, qkv_w, qkv_b, proj_w, proj_b, bias,
+                num_heads, ln_eps):
+        fn = _route(x, attn_sublayer_plain, attn_sublayer_cuda)
+        ctx.save_for_backward(x, ln_scale, ln_bias, qkv_w, qkv_b, proj_w, proj_b, bias)
+        ctx.num_heads, ctx.ln_eps = num_heads, ln_eps
+        return fn(x, ln_scale, ln_bias, qkv_w, qkv_b, proj_w, proj_b, bias,
+                  num_heads=num_heads, ln_eps=ln_eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, ln_scale, ln_bias, qkv_w, qkv_b, proj_w, proj_b, bias = ctx.saved_tensors
+        fn = _route(x, attn_sublayer_bwd_plain, attn_sublayer_bwd_cuda)
+        dx, dqkv, xn, o, dlns, dlnb = fn(
+            x, g.contiguous(), ln_scale, ln_bias, qkv_w, qkv_b, proj_w, bias,
+            num_heads=ctx.num_heads, ln_eps=ctx.ln_eps,
+        )
+        # Weight gradients: row-contracted library matmuls and sums outside
+        # the kernel, each only where its primal needs a gradient (a frozen
+        # encoder skips all four).
+        need = ctx.needs_input_grad
+        d = x.shape[-1]
+        g2, dqkv2 = g.reshape(-1, d), dqkv.reshape(-1, 3 * d)
+        dwqkv = dbqkv = dwproj = dbproj = None
+        if need[3]:
+            dwqkv = (xn.reshape(-1, d).t() @ dqkv2).to(qkv_w.dtype)
+        if need[4]:
+            dbqkv = dqkv2.sum(dim=0, dtype=torch.float32).to(qkv_b.dtype)
+        if need[5]:
+            dwproj = (o.reshape(-1, d).t() @ g2).to(proj_w.dtype)
+        if need[6]:
+            dbproj = g2.sum(dim=0, dtype=torch.float32).to(proj_b.dtype)
+        _weight_grad_products["attn_sublayer"] += sum(need[3:7])
+        return (
+            dx if need[0] else None,
+            dlns.to(ln_scale.dtype) if need[1] else None,
+            dlnb.to(ln_bias.dtype) if need[2] else None,
+            dwqkv, dbqkv, dwproj, dbproj, None, None, None,
+        )
+
+
+class _MlpSublayer(torch.autograd.Function):
+    """``mlp_sublayer`` with a recompute backward: LayerNorm, fc1 and GELU
+    are formed again from x with library matmuls in ``x.dtype`` (fp32
+    accumulation); the GELU derivative is the library's one-pass erf-GELU
+    backward, and the LayerNorm backward runs in fp32. Saves only its
+    inputs."""
+
+    @staticmethod
+    def forward(ctx, x, ln_scale, ln_bias, fc1_w, fc1_b, fc2_w, fc2_b, ln_eps):
+        fn = _route(x, mlp_sublayer_plain, mlp_sublayer_cuda)
+        ctx.save_for_backward(x, ln_scale, ln_bias, fc1_w, fc1_b, fc2_w, fc2_b)
+        ctx.ln_eps = ln_eps
+        return fn(x, ln_scale, ln_bias, fc1_w, fc1_b, fc2_w, fc2_b, ln_eps=ln_eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, ln_scale, ln_bias, fc1_w, fc1_b, fc2_w, fc2_b = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        dt, d = x.dtype, x.shape[-1]
+        x2, g2 = x.reshape(-1, d), g.reshape(-1, d).to(dt)
+        xf = x2.float()
+        mean = xf.mean(dim=-1, keepdim=True)
+        rstd = torch.rsqrt((xf - mean).square().mean(dim=-1, keepdim=True) + ctx.ln_eps)
+        xhat = (xf - mean) * rstd
+        gamma = ln_scale.float()
+        xn = (xhat * gamma + ln_bias.float()).to(dt)
+        w1, w2 = fc1_w.to(dt), fc2_w.to(dt)
+        u = torch.addmm(fc1_b.to(dt), xn, w1)  # pre-activation [rows, F]
+        da = g2 @ w2.t()
+        dw2 = db2 = dw1 = db1 = None
+        if need[5]:
+            dw2 = (torch.nn.functional.gelu(u).t() @ g2).to(fc2_w.dtype)
+        if need[6]:
+            db2 = g2.sum(dim=0, dtype=torch.float32).to(fc2_b.dtype)
+        du = torch.ops.aten.gelu_backward(da, u)  # exact erf form, one pass
+        del da, u
+        if need[3]:
+            dw1 = (xn.t() @ du).to(fc1_w.dtype)
+        if need[4]:
+            db1 = du.sum(dim=0, dtype=torch.float32).to(fc1_b.dtype)
+        _weight_grad_products["mlp_sublayer"] += sum(need[3:7])
+        dxn = (du @ w1.t()).float()
+        dxhat = dxn * gamma
+        mr1 = dxhat.mean(dim=-1, keepdim=True)
+        mr2 = (dxhat * xhat).mean(dim=-1, keepdim=True)
+        dx = (g2.float() + rstd * (dxhat - mr1 - xhat * mr2)).to(dt).reshape(x.shape)
+        dlns = (dxn * xhat).sum(dim=0).to(ln_scale.dtype) if need[1] else None
+        dlnb = dxn.sum(dim=0).to(ln_bias.dtype) if need[2] else None
+        return dx if need[0] else None, dlns, dlnb, dw1, db1, dw2, db2, None
+
+
+def _wants_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
 def mlp_sublayer(
@@ -273,8 +494,11 @@ def mlp_sublayer(
 
     Row-independent: [B, T, D] is processed as [B*T, D] rows.
     """
-    fn = _route(x, mlp_sublayer_plain, mlp_sublayer_cuda)
-    return fn(x, ln_scale, ln_bias, fc1_w, fc1_b, fc2_w, fc2_b, ln_eps=float(ln_eps))
+    args = (x, ln_scale, ln_bias, fc1_w, fc1_b, fc2_w, fc2_b)
+    if not _wants_grad(*args):  # serving: straight to the kernel
+        fn = _route(x, mlp_sublayer_plain, mlp_sublayer_cuda)
+        return fn(*args, ln_eps=float(ln_eps))
+    return _MlpSublayer.apply(*args, float(ln_eps))
 
 
 def attn_sublayer(
@@ -302,7 +526,7 @@ def attn_sublayer(
     bias = None
     if mask is not None:
         bias = torch.where(mask, 0.0, NEG_INF).to(device=x.device, dtype=torch.float32)
-    return fn(
-        x, ln_scale, ln_bias, qkv_w, qkv_b, proj_w, proj_b, bias,
-        num_heads=num_heads, ln_eps=float(ln_eps),
-    )
+    args = (x, ln_scale, ln_bias, qkv_w, qkv_b, proj_w, proj_b)
+    if not _wants_grad(*args):  # serving: straight to the kernel
+        return fn(*args, bias, num_heads=int(num_heads), ln_eps=float(ln_eps))
+    return _AttnSublayer.apply(*args, bias, int(num_heads), float(ln_eps))

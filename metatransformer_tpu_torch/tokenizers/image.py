@@ -14,6 +14,8 @@ from typing import Dict
 import numpy as np
 import torch
 
+from metatransformer_tpu_torch.core import device as _device
+
 
 @dataclasses.dataclass(frozen=True)
 class ImageTokenizerConfig:
@@ -38,9 +40,10 @@ class ImageTokenizerConfig:
 def init(
     cfg: ImageTokenizerConfig,
     generator: torch.Generator,
-    device: torch.device | str = "cpu",
+    device: _device.Device = None,
 ) -> Dict[str, torch.Tensor]:
     """Normal(0, patch_dim**-0.5) weights drawn on the CPU, zero bias."""
+    device = _device.resolve(device)
     w = torch.randn(cfg.patch_dim, cfg.dim, generator=generator) * cfg.patch_dim**-0.5
     return {
         "w": w.to(device),
@@ -74,9 +77,10 @@ def apply(
 
 
 def convert_torch_conv(
-    weight: np.ndarray, bias: np.ndarray, device: torch.device | str = "cpu"
+    weight: np.ndarray, bias: np.ndarray, device: _device.Device = None
 ) -> Dict[str, torch.Tensor]:
     """torch Conv2d [D, C, ph, pw] (+[D]) -> our [ph*pw*C, D] matmul weights."""
+    device = _device.resolve(device)
     d = weight.shape[0]
     w = np.transpose(np.asarray(weight, np.float32), (2, 3, 1, 0)).reshape(-1, d)
     return {

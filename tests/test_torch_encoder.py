@@ -36,7 +36,7 @@ def _jax_encode(np_params, x, cfg, **kw):
 
 
 def _port_encode(np_params, x, cfg, **kw):
-    params = convert.from_numpy(np_params)
+    params = convert.from_numpy(np_params, "cpu")
     kw = {k: (torch.tensor(v) if isinstance(v, np.ndarray) else v) for k, v in kw.items()}
     return enc.encode(params, torch.tensor(x), cfg, **kw).float().numpy()
 
@@ -142,30 +142,114 @@ def test_resolve_impl_matches_jax(t):
 @pytest.mark.parametrize("impl", ["flash", "ring", "performer"])
 def test_unported_attention_paths_raise(impl):
     cfg = enc.EncoderConfig(dim=64, depth=1, num_heads=4, attn_impl=impl)
-    params = enc.init(cfg, torch.Generator().manual_seed(0))
+    params = enc.init(cfg, torch.Generator().manual_seed(0), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         enc.encode(params, torch.zeros(1, 5, 64), cfg)
 
 
 def test_auto_long_sequence_raises_instead_of_falling_back():
     cfg = enc.EncoderConfig(dim=64, depth=1, num_heads=2)
-    params = enc.init(cfg, torch.Generator().manual_seed(0))
+    params = enc.init(cfg, torch.Generator().manual_seed(0), device="cpu")
     with pytest.raises(NotImplementedError, match="flash"):
         enc.encode(params, torch.zeros(1, 512, 64), cfg)
 
 
+def _encode_grads(np_params, x, cfg, precision, remat):
+    params = convert.from_numpy(np_params, "cpu", requires_grad=True)
+    xt = torch.tensor(x, requires_grad=True)
+    out = enc.encode(params, xt, cfg, precision=precision, remat=remat)
+    out.float().square().sum().backward()
+    return {"x": xt.grad.numpy(), **{k: v.grad.numpy() for k, v in params.items()}}
+
+
+@pytest.mark.parametrize("remat", [False, True, "save"])
+def test_remat_grads_match_jax(remat):
+    """Gradients of the FP32 encoder (XLA path) in every leaf and in x vs
+    ``jax.grad`` of the reference, for each remat mode: checkpointing must
+    not change a gradient."""
+    jcfg, cfg = _cfgs(128, 3, 4)
+    np_params = jax.tree.map(np.asarray, jenc.init(jcfg, jax.random.PRNGKey(0)))
+    x = np.random.default_rng(7).standard_normal((2, 9, 128), dtype=np.float32)
+    got = _encode_grads(np_params, x, cfg, enc.FP32, remat)
+
+    def loss(p, xj):
+        return jnp.sum(jenc.encode(p, xj, jcfg, remat=remat) ** 2)
+
+    gp, gx = jax.grad(loss, argnums=(0, 1))(
+        {k: jnp.asarray(v) for k, v in np_params.items()}, jnp.asarray(x)
+    )
+    np.testing.assert_allclose(got["x"], np.asarray(gx), atol=1e-4)
+    for k in np_params:
+        np.testing.assert_allclose(got[k], np.asarray(gp[k]), atol=1e-4, err_msg=k)
+
+
 @pytest.mark.parametrize("remat", [True, "save"])
-def test_remat_raises(remat):
+def test_remat_bf16_grads_match_no_remat(remat):
+    """BF16: remat=True recomputes the same fused sublayers, so gradients
+    are bit-equal to remat=False; "save" takes the XLA block and agrees at
+    the bf16 drift bound."""
+    jcfg, cfg = _cfgs(128, 2, 2)
+    np_params = jax.tree.map(np.asarray, jenc.init(jcfg, jax.random.PRNGKey(1)))
+    x = np.random.default_rng(8).standard_normal((2, 37, 128), dtype=np.float32)
+    want = _encode_grads(np_params, x, cfg, enc.BF16, False)
+    got = _encode_grads(np_params, x, cfg, enc.BF16, remat)
+    for k in want:
+        if remat is True:
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+        else:
+            scale = np.abs(want[k]).max()
+            np.testing.assert_allclose(got[k], want[k], atol=0.1 * scale, rtol=0.1, err_msg=k)
+
+
+def test_encode_bf16_fused_grads_match_jax_fused():
+    """BF16 fused path: the port's plain backward vs the JAX Pallas backward
+    (interpret mode) through the whole encoder, at the bf16 bound of
+    tests/test_fused_block.py (rtol = atol = 0.1, atol scaled by the
+    gradient's magnitude)."""
+    jcfg, cfg = _cfgs(128, 2, 2)
+    np_params = jax.tree.map(np.asarray, jenc.init(jcfg, jax.random.PRNGKey(2)))
+    x = np.random.default_rng(9).standard_normal((2, 37, 128), dtype=np.float32)
+    assert enc._resolve_impl(cfg, 37, enc.BF16) == "fused"
+    got = _encode_grads(np_params, x, cfg, enc.BF16, False)
+
+    def loss(p, xj):
+        out = jenc.encode(p, xj, jcfg, precision=jenc.BF16)
+        return jnp.sum(out.astype(jnp.float32) ** 2)
+
+    gp, gx = jax.grad(loss, argnums=(0, 1))(
+        {k: jnp.asarray(v) for k, v in np_params.items()}, jnp.asarray(x)
+    )
+    want = {"x": np.asarray(gx), **{k: np.asarray(v) for k, v in gp.items()}}
+    for k in want:
+        scale = max(np.abs(want[k]).max(), 1e-6)
+        np.testing.assert_allclose(
+            got[k] / scale, want[k] / scale, atol=0.1, rtol=0.1, err_msg=k
+        )
+
+
+def test_default_device_raises_without_a_card(monkeypatch):
+    """Entry points run on the card unless the caller asks for the CPU:
+    with no card, ``init`` without ``device`` raises and never falls back."""
+    from metatransformer_tpu_torch.core import device as port_device
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = enc.EncoderConfig(dim=64, depth=1, num_heads=4)
-    params = enc.init(cfg, torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="training"):
-        enc.encode(params, torch.zeros(1, 5, 64), cfg, remat=remat)
+    gen = torch.Generator().manual_seed(0)
+    with pytest.raises(RuntimeError, match="CUDA card"):
+        enc.init(cfg, gen)
+    with pytest.raises(RuntimeError, match="CUDA card"):
+        port_device.default_device()
+    with pytest.raises(RuntimeError, match="CUDA card"):
+        convert.from_numpy({"a": np.zeros(2)})
+    params = enc.init(cfg, gen, device="cpu")
+    assert params["qkv_w"].device.type == "cpu"
+    assert port_device.resolve("cpu") == torch.device("cpu")
 
 
 def test_init_layout_matches_jax():
     cfg = enc.EncoderConfig(dim=64, depth=3, num_heads=4)
     jcfg = jenc.EncoderConfig(dim=64, depth=3, num_heads=4)
-    params = enc.init(cfg, torch.Generator().manual_seed(0))
+    params = enc.init(cfg, torch.Generator().manual_seed(0), device="cpu")
     jparams = jenc.init(jcfg, jax.random.PRNGKey(0))
     assert enc.param_shapes(cfg) == jenc.param_shapes(jcfg)
     assert set(params) == set(jparams)
@@ -173,13 +257,13 @@ def test_init_layout_matches_jax():
         assert tuple(v.shape) == jparams[k].shape, k
     w = params["qkv_w"]
     assert w.abs().max() <= 0.04 + 1e-6 and 0.015 < w.std() < 0.02
-    again = enc.init(cfg, torch.Generator().manual_seed(0))
+    again = enc.init(cfg, torch.Generator().manual_seed(0), device="cpu")
     assert all(torch.equal(params[k], again[k]) for k in params)
 
 
 def test_cast_params_once():
     cfg = enc.EncoderConfig(dim=64, depth=1, num_heads=4)
-    params = enc.init(cfg, torch.Generator().manual_seed(0))
+    params = enc.init(cfg, torch.Generator().manual_seed(0), device="cpu")
     cast = enc.cast_params(params, enc.BF16)
     assert cast["qkv_w"].dtype == torch.bfloat16
     assert cast["norm1_scale"].dtype == torch.float32
@@ -206,7 +290,7 @@ def test_jax_npz_loads_identically(tmp_path):
     params = jenc.init(jenc.EncoderConfig(128, 2, 2), jax.random.PRNGKey(0))
     path = str(tmp_path / "enc.npz")
     jconvert.save_npz(path, params)
-    loaded, cfg = convert.load_npz(path)
+    loaded, cfg = convert.load_npz(path, device="cpu")
     assert cfg == enc.EncoderConfig(128, 2, 2)
     for k in params:
         np.testing.assert_array_equal(loaded[k].numpy(), np.asarray(params[k]))
@@ -229,13 +313,13 @@ def test_convert_cli_matches_jax(tmp_path):
         assert sorted(a.files) == sorted(b.files)
         for k in a.files:
             np.testing.assert_array_equal(a[k], b[k])
-    params, cfg = convert.convert_pth(pth)
+    params, cfg = convert.convert_pth(pth, device="cpu")
     assert cfg.dim == 64 and params["qkv_w"].shape == (2, 64, 192)
 
 
 def test_to_numpy_inverts_from_numpy():
     tree = {"a": np.arange(6, dtype=np.float32).reshape(2, 3), "b": {"c": np.ones(2)}}
-    back = convert.to_numpy(convert.from_numpy(tree))
+    back = convert.to_numpy(convert.from_numpy(tree, "cpu"))
     np.testing.assert_array_equal(back["a"], tree["a"])
     np.testing.assert_array_equal(back["b"]["c"], tree["b"]["c"])
     bf = convert.to_numpy({"w": torch.tensor([1.5, -2.0], dtype=torch.bfloat16)})
@@ -257,4 +341,4 @@ def test_port_never_imports_jax():
         cwd=Path(__file__).resolve().parent.parent,
     )
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout) >= 13
+    assert int(out.stdout) >= 24

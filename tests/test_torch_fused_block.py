@@ -112,7 +112,7 @@ def test_cpu_tensors_launch_no_kernel():
     fb.attn_sublayer(*a, num_heads=2)
     m = _torch(_mlp_inputs(1, 9, 128, seed=4))
     fb.mlp_sublayer(*m)
-    assert fb.launch_counts() == {"attn_sublayer": 0, "mlp_sublayer": 0}
+    assert fb.launch_counts() == {"attn_sublayer": 0, "mlp_sublayer": 0, "attn_sublayer_bwd": 0}
 
 
 def test_other_devices_are_refused():
@@ -144,15 +144,21 @@ def test_cuda_wrapper_checks_inputs_before_launch(index, bad, error):
     assert fb.attn_sublayer_cuda.launches == before
 
 
-def test_cuda_wrapper_refuses_grad():
+def test_bwd_cuda_wrapper_checks_inputs_before_launch():
     args = _bf16_attn_args()
-    args[3].requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        fb.attn_sublayer_cuda(*args, None, num_heads=2, ln_eps=1e-5)
+    x, lns, lnb, wqkv, bqkv, wproj, _ = args
+    before = fb.attn_sublayer_bwd_cuda.launches
+    with pytest.raises(TypeError):  # the cotangent must be bf16 like x
+        fb.attn_sublayer_bwd_cuda(
+            x, x.float(), lns, lnb, wqkv, bqkv, wproj, None, num_heads=2, ln_eps=1e-5
+        )
+    assert fb.attn_sublayer_bwd_cuda.launches == before
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
-    monkeypatch.setattr(_build, "library_path", lambda: tmp_path / "missing.so")
+    monkeypatch.setattr(
+        _build, "library_paths", lambda: {_build._CSRC / "fused_block.cu": tmp_path / "missing.so"}
+    )
     monkeypatch.setattr(_build.shutil, "which", lambda name: None)
     monkeypatch.setattr(_build.os.path, "exists", lambda path: False)
     with pytest.raises(RuntimeError, match="nvcc not found"):
