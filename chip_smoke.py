@@ -1,6 +1,7 @@
 """Chip smoke test of the PyTorch/CUDA port: drives the ViT-B16 image
-serving path and the ViT-B16 training step (frozen-encoder and full
-fine-tune) on one NVIDIA GPU through the hand-written kernels.
+serving path, the ViT-B16 image training step and the ViT-B16 video
+classifier (16 x 224^2 clip, 1568 tokens; served and trained, frozen-encoder
+and full fine-tune) on one NVIDIA GPU through the hand-written kernels.
 
     python3 chip_smoke.py [--seed N] [--profile]
 
@@ -27,7 +28,16 @@ Phases (any failed check raises, so the process exits non-zero):
    steps against the same run with the plain versions on the card;
 8. time one optimizer step of each track, with its peak memory; with
    ``--profile``, device time by kernel of a full-track step;
-9. print one JSON line describing the kernels, then the result line.
+9. video: hold the three flash-attention kernels (forward, dq, dk/dv)
+   against their plain versions at B*H = 12 and 96, T = 1568, head_dim 64,
+   dense and ragged, at head_dim 32 and 128, in bf16 and fp32, and the
+   autograd Function against fp32 autograd; serve uint8 clips of b = 1 and 8
+   and one 15-view request through a full-width ``VideoClassifier``; take 4
+   AdamW steps of each track at batch 8 through ``Trainer``; take 2 steps of
+   the video-MAE loss at batch 4 (the fp32 kernel route); each against the
+   plain versions on the card; then time the kernels, the clip forward and
+   one step of each track;
+10. print one JSON line describing the kernels, then the result line.
 
 It imports nothing of JAX. Without a CUDA card it raises before printing
 any result.
@@ -91,8 +101,30 @@ UPDATE_RTOL, UPDATE_MIN_FRACTION, UPDATE_REL_L2 = 0.1, 0.98, 0.2
 # timed steps use 1e-3 on both tracks: the rate does not change the work.
 CHECK_LR = {"frozen": 1e-3, "full": 1e-4}
 TIMING_REPS = 20
-# Published dense peaks of one H100 SXM: bf16 tensor-core rate, HBM rate.
-PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12
+# Published dense peaks of one H100 SXM: bf16 tensor-core rate, HBM rate,
+# and the fp32 rate outside the tensor cores (the fp32 kernel route).
+PEAK_FLOPS, PEAK_BYTES, PEAK_FLOPS_FP32 = 989e12, 3.35e12, 67e12
+
+# Video path: VideoMAE geometry on ViT-B16, 8 * 14 * 14 = 1568 tokens.
+VT, VIDEO_CLASSES = 1568, 400
+VIDEO_SERVE_BATCHES = (1, 8)
+VIDEO_TRAIN_BATCH, VIDEO_TRAIN_STEPS = 8, 4
+MAE_BATCH, MAE_STEPS = 4, 2
+# AdamW rates of the video training check, as CHECK_LR for images. A batch of
+# 8 random clips is memorised fast: full fine-tuning at 1e-4 overshoots (4
+# steps on an H100: 6.71 2.32 3.47 3.91), at 1e-5 the loss falls at every
+# step (6.71 5.42 4.28 3.38 2.77).
+VIDEO_CHECK_LR = {"frozen": 1e-3, "full": 1e-5}
+# Flash kernels vs their plain versions computed in fp32 from the same
+# inputs, max abs error over max |value| of each output. bf16: the kernel's
+# own roundings (p and the output; ds, p and the result in the backward) at
+# 2**-9 each, summed over up to 1568 keys tile by tile where the plain
+# version sums at once; the same bound as BWD_REL_TOL. fp32: only the order
+# of summation and expf differ. lse is fp32 in both.
+FLASH_REL_TOL = {torch.bfloat16: 1.6e-2, torch.float32: 2e-5}
+LSE_TOL = 1e-4
+# Video-MAE loss (fp32 policy, fp32 kernels) vs the plain-version run.
+MAE_LOSS_TOL = 1e-3
 
 CSRC = "metatransformer_tpu_torch/ops/csrc/"
 KERNELS = {
@@ -100,7 +132,14 @@ KERNELS = {
     "mlp_sublayer": ("metatransformer_tpu/ops/fused_block.py:562", CSRC + "fused_block.cu"),
     "attn_sublayer_bwd": (
         "metatransformer_tpu/ops/fused_block.py:310", CSRC + "fused_block_bwd.cu"),
+    "flash_fwd": ("metatransformer_tpu/ops/flash_attention.py:70", CSRC + "flash_attention.cu"),
+    "flash_bwd_dq": (
+        "metatransformer_tpu/ops/flash_attention.py:137", CSRC + "flash_attention.cu"),
+    "flash_bwd_dkv": (
+        "metatransformer_tpu/ops/flash_attention.py:176", CSRC + "flash_attention.cu"),
 }
+FUSED_KERNELS = ("attn_sublayer", "mlp_sublayer", "attn_sublayer_bwd")
+FLASH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 
 
 def phase_device() -> None:
@@ -291,13 +330,17 @@ def _plain_versions():
     on the card's tensors with library ops)."""
     from contextlib import ExitStack
 
+    from metatransformer_tpu_torch.ops import flash_attention as fa
     from metatransformer_tpu_torch.ops import fused_block as fb
 
     stack = ExitStack()
-    for cuda, plain in (("attn_sublayer_cuda", fb.attn_sublayer_plain),
-                        ("mlp_sublayer_cuda", fb.mlp_sublayer_plain),
-                        ("attn_sublayer_bwd_cuda", fb.attn_sublayer_bwd_plain)):
-        stack.enter_context(mock.patch.object(fb, cuda, plain))
+    for mod, cuda, plain in ((fb, "attn_sublayer_cuda", fb.attn_sublayer_plain),
+                             (fb, "mlp_sublayer_cuda", fb.mlp_sublayer_plain),
+                             (fb, "attn_sublayer_bwd_cuda", fb.attn_sublayer_bwd_plain),
+                             (fa, "flash_fwd_cuda", fa.flash_attention_plain),
+                             (fa, "flash_bwd_dq_cuda", fa.flash_bwd_dq_plain),
+                             (fa, "flash_bwd_dkv_cuda", fa.flash_bwd_dkv_plain)):
+        stack.enter_context(mock.patch.object(mod, cuda, plain))
     return stack
 
 
@@ -310,10 +353,22 @@ def _serve(model, requests, dev):
     return answers
 
 
+def _check_launches_per_request(per_request, expected: dict, what: str):
+    """Each request must add exactly ``expected`` launches (0 for a kernel
+    not named) to the running counts."""
+    before = {k: 0 for k in per_request[0]}
+    for i, counts in enumerate(per_request):
+        grew = {k: v - before[k] for k, v in counts.items()}
+        want = {k: expected.get(k, 0) for k in counts}
+        if grew != want:
+            raise AssertionError(f"{what} request {i}: launches {grew}, expected {want}")
+        before = counts
+
+
 def phase_serve(seed: int, dev):
+    from metatransformer_tpu_torch import ops
     from metatransformer_tpu_torch.core import encoder as enc
     from metatransformer_tpu_torch.models import image_classifier as ic
-    from metatransformer_tpu_torch.ops import fused_block as fb
 
     cfg = ic.ImageClassifierConfig()  # ViT-B16, 224^2, patch 16, 1000 classes
     params = ic.init(cfg, torch.Generator().manual_seed(seed))  # lands on the card
@@ -327,19 +382,16 @@ def phase_serve(seed: int, dev):
     ]
     depth = cfg.encoder.depth
 
-    fb.reset_launch_counts()
+    ops.reset_launch_counts()
     answers, per_request = [], []
     for images in requests:
         answers += _serve(model, [images], dev)
-        per_request.append(fb.launch_counts())
+        per_request.append(ops.launch_counts())
     torch.cuda.synchronize()
-    launches = fb.launch_counts()
+    launches = ops.launch_counts()
     print(f"served {len(requests)} requests, kernel launches {launches}", flush=True)
-    for kind in ("attn_sublayer", "mlp_sublayer"):
-        counts = [c[kind] for c in per_request]
-        grew = [b - a for a, b in zip([0] + counts, counts)]
-        if grew != [depth] * len(requests):
-            raise AssertionError(f"{kind}: launches per forward {grew}, expected {depth}")
+    _check_launches_per_request(
+        per_request, {"attn_sublayer": depth, "mlp_sublayer": depth}, "image serve")
 
     # The same model with the plain versions on the card, request by request.
     with _plain_versions():
@@ -406,54 +458,61 @@ def _largest_leaf(tree):
     return max(optim.flatten_with_paths(tree), key=lambda kv: kv[1].numel())
 
 
-def phase_train(seed: int, dev) -> dict:
+def _train_tracks(what, make_trainer, batch, steps, per_step, weight_grads, lrs) -> dict:
+    """Both tracks of one model through ``Trainer`` on one fixed batch:
+    ``steps`` AdamW steps with the kernel launches of every step held to
+    ``per_step`` (kernels not named: 0) and the fused sublayers'
+    weight-gradient products to ``weight_grads[track]``, at the AdamW rate
+    ``lrs[track]``; the loss must fall
+    at every step, a frozen encoder must not move, and the first
+    COMPARE_STEPS steps are held against the same run with the plain
+    versions on the card. Returns the launches of each track."""
+    from metatransformer_tpu_torch import ops
     from metatransformer_tpu_torch.ops import fused_block as fb
 
-    batch = _train_batch()
+    size = len(batch["label"])
     launches = {}
     for track in ("frozen", "full"):
-        trainer, cfg = _make_trainer(track, seed, CHECK_LR[track])
-        depth = cfg.encoder.depth
+        trainer = make_trainer(track, lrs[track])
         path, leaf = _largest_leaf(trainer.trainable)
         start = leaf.detach().clone()
         frozen_before = {k: v.clone() for k, v in trainer.frozen.get("encoder", {}).items()}
 
-        fb.reset_launch_counts()
+        ops.reset_launch_counts()
         losses, updates = [], None
-        for step in range(TRAIN_STEPS):
-            before, wg_before = fb.launch_counts(), fb.weight_grad_counts()
+        for step in range(steps):
+            before, wg_before = ops.launch_counts(), fb.weight_grad_counts()
             stats = trainer.train_epoch([batch])  # one optimizer step
             losses.append(stats["loss"])
-            grew = {k: v - before[k] for k, v in fb.launch_counts().items()}
-            if grew != {k: depth for k in grew}:
-                raise AssertionError(f"{track} step {step}: kernel launches {grew}, "
-                                     f"expected {depth} of each")
+            grew = {k: v - before[k] for k, v in ops.launch_counts().items()}
+            if grew != {k: per_step.get(k, 0) for k in grew}:
+                raise AssertionError(f"{what} {track} step {step}: kernel launches {grew}, "
+                                     f"expected {per_step} and 0 of the others")
             wg = {k: v - wg_before[k] for k, v in fb.weight_grad_counts().items()}
-            want_wg = 0 if track == "frozen" else 4 * depth
-            if wg != {k: want_wg for k in wg}:
-                raise AssertionError(f"{track} step {step}: weight-gradient products {wg}, "
-                                     f"expected {want_wg} per sublayer kind")
+            if wg != {k: weight_grads[track] for k in wg}:
+                raise AssertionError(f"{what} {track} step {step}: weight-gradient products "
+                                     f"{wg}, expected {weight_grads[track]} per sublayer kind")
             if step == COMPARE_STEPS - 1:
                 updates = leaf.detach() - start
         torch.cuda.synchronize()
-        launches[track] = fb.launch_counts()
-        print(f"train {track}: {TRAIN_STEPS} AdamW steps (lr {CHECK_LR[track]:g}) at batch "
-              f"{TRAIN_BATCH}, losses "
+        launches[track] = ops.launch_counts()
+        print(f"{what} {track}: {steps} AdamW steps (lr {lrs[track]:g}) at batch "
+              f"{size}, losses "
               + " ".join(f"{v:.4f}" for v in losses)
               + f"; launches {launches[track]}; weight-gradient products "
               f"{fb.weight_grad_counts()}", flush=True)
         if not all(np.isfinite(losses)):
-            raise AssertionError(f"{track}: non-finite loss")
+            raise AssertionError(f"{what} {track}: non-finite loss")
         if not all(b < a for a, b in zip(losses, losses[1:])):
-            raise AssertionError(f"{track}: loss did not fall at every step: {losses}")
+            raise AssertionError(f"{what} {track}: loss did not fall at every step: {losses}")
         for k, v in frozen_before.items():
             now = trainer.frozen["encoder"][k]
             if not torch.equal(now, v) or now.grad is not None or now.requires_grad:
-                raise AssertionError(f"{track}: frozen encoder leaf {k} changed")
+                raise AssertionError(f"{what} {track}: frozen encoder leaf {k} changed")
         del trainer
 
         # The first steps again with the plain versions on the card.
-        ref_trainer, _ = _make_trainer(track, seed, CHECK_LR[track])
+        ref_trainer = make_trainer(track, lrs[track])
         _, ref_leaf = _largest_leaf(ref_trainer.trainable)
         with _plain_versions():
             ref_losses = [ref_trainer.train_epoch([batch])["loss"]
@@ -465,19 +524,29 @@ def phase_train(seed: int, dev) -> dict:
         inside = ((updates - ref_updates).abs()
                   <= atol + UPDATE_RTOL * ref_updates.abs()).float().mean().item()
         rel_l2 = ((updates - ref_updates).norm() / ref_updates.norm()).item()
-        print(f"train {track} vs plain versions, {COMPARE_STEPS} steps: |loss diff| "
+        print(f"{what} {track} vs plain versions, {COMPARE_STEPS} steps: |loss diff| "
               + " ".join(f"{v:.5f}" for v in diffs)
               + f" (tol {LOSS_TOL}); update of {'/'.join(path)} {tuple(leaf.shape)}: "
               f"{inside:.4f} of elements within rtol {UPDATE_RTOL} + atol {atol:.3g} "
               f"(min {UPDATE_MIN_FRACTION}), relative L2 {rel_l2:.4f} (max {UPDATE_REL_L2})",
               flush=True)
         if max(diffs) > LOSS_TOL:
-            raise AssertionError(f"{track}: losses differ from the plain run: {diffs}")
+            raise AssertionError(f"{what} {track}: losses differ from the plain run: {diffs}")
         if inside < UPDATE_MIN_FRACTION or not rel_l2 <= UPDATE_REL_L2:
-            raise AssertionError(f"{track}: update of {path} differs from the plain run")
+            raise AssertionError(f"{what} {track}: update of {path} differs from the plain run")
         del ref_trainer
         torch.cuda.empty_cache()
     return launches
+
+
+def phase_train(seed: int, dev) -> dict:
+    from metatransformer_tpu_torch.models import image_classifier as ic
+
+    depth = ic.ImageClassifierConfig().encoder.depth
+    return _train_tracks(
+        "train", lambda track, lr: _make_trainer(track, seed, lr)[0], _train_batch(),
+        TRAIN_STEPS, {k: depth for k in FUSED_KERNELS},
+        {"frozen": 0, "full": 4 * depth}, CHECK_LR)
 
 
 # --------------------------------------------------------------------------
@@ -549,7 +618,7 @@ def phase_times(model, seed: int, dev) -> dict:
     times = {}
     b = 128
     bounds = _bounds(b)
-    for kind in KERNELS:
+    for kind in FUSED_KERNELS:
         kernel, plain = _pair(kind)
         if kind == "attn_sublayer_bwd":
             args = _bwd_inputs(b, seed, dev)
@@ -610,8 +679,8 @@ def phase_train_times(seed: int, dev, profile: bool):
         torch.cuda.empty_cache()
 
 
-def _profile_step(step, steps: int = 3):
-    """Device time by kernel over a few full-track steps (torch.profiler)."""
+def _profile_step(step, what: str = "full-track step", steps: int = 3):
+    """Device time by kernel over a few runs of ``step`` (torch.profiler)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -624,7 +693,7 @@ def _profile_step(step, steps: int = 3):
     rows = [(e.key, e.device_time_total / steps, e.count / steps)
             for e in prof.key_averages() if e.device_time_total > 0]
     busy = sum(r[1] for r in rows)
-    print(f"profile, full-track step: wall {wall_us:.1f} us/step under the profiler, "
+    print(f"profile, {what}: wall {wall_us:.1f} us/step under the profiler, "
           f"device busy {busy:.1f} us/step, idle share {100 * (1 - busy / wall_us):.2f}%",
           flush=True)
     for key, us, count in sorted(rows, key=lambda r: -r[1])[:28]:
@@ -632,11 +701,441 @@ def _profile_step(step, steps: int = 3):
               flush=True)
 
 
+# --------------------------------------------------------------------------
+# Long sequences and video: the flash-attention kernels and the paths on them
+# --------------------------------------------------------------------------
+
+BF, F32 = torch.bfloat16, torch.float32
+FLASH_CASES = [  # b, h, t, head_dim, dtype, ragged mask
+    (1, 12, VT, 64, BF, False), (1, 12, VT, 64, BF, True),
+    (8, 12, VT, 64, BF, False), (8, 12, VT, 64, BF, True),
+    (2, 4, 512, 32, BF, True), (2, 4, 577, 32, BF, False),
+    (2, 2, 512, 128, BF, False), (2, 2, 577, 128, BF, True),
+    (4, 6, VT, 64, F32, False), (1, 12, VT, 64, F32, True),
+    (2, 4, 577, 32, F32, True), (2, 2, 577, 128, F32, True),
+]
+
+
+def _flash_inputs(b, h, t, d, dtype, ragged, seed, dev):
+    """Seeded unit-normal q, k, v as strided views of one [B, T, 3, H, d]
+    tensor (the layout the encoder hands over), a cotangent, and the key
+    bias of a ragged keep-mask (sample i loses its last (i+1) t / (2b+2)
+    keys) or None."""
+    from metatransformer_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator().manual_seed(seed)
+    qkv = torch.randn(b, t, 3, h, d, generator=g).to(dev, dtype)
+    do = torch.randn(b, t, h, d, generator=g).to(dev, dtype)
+    bias = None
+    if ragged:
+        keep = torch.ones(b, t, dtype=torch.bool, device=dev)
+        for i in range(b):
+            keep[i, t - (i + 1) * t // (2 * b + 2):] = False
+        bias = torch.where(keep, 0.0, fa.NEG_INF).float()
+    return (*qkv.unbind(2), bias, do)
+
+
+def phase_flash_kernels(seed: int, dev) -> dict:
+    """Kernels #4-#6 vs their plain versions in fp32 from the same inputs;
+    lse held too; both backward kernels bit-equal on a second launch.
+    Returns the worst absolute error of each kernel."""
+    from metatransformer_tpu_torch.ops import flash_attention as fa
+
+    worst = {k: 0.0 for k in FLASH_KERNELS}
+    f = lambda x: x.float()
+    for b, h, t, d, dtype, ragged in FLASH_CASES:
+        q, k, v, bias, do = _flash_inputs(b, h, t, d, dtype, ragged, seed + t + d, dev)
+        scale = float(d) ** -0.5
+        with torch.no_grad():
+            o, lse = fa.flash_fwd_cuda(q, k, v, bias, scale)
+            delta = fa._delta(o, do)
+            dq = fa.flash_bwd_dq_cuda(q, k, v, bias, do, lse, delta, scale)
+            dk, dv = fa.flash_bwd_dkv_cuda(q, k, v, bias, do, lse, delta, scale)
+            dq2 = fa.flash_bwd_dq_cuda(q, k, v, bias, do, lse, delta, scale)
+            dk2, dv2 = fa.flash_bwd_dkv_cuda(q, k, v, bias, do, lse, delta, scale)
+            torch.cuda.synchronize()
+            want_o, want_lse = fa.flash_attention_plain(f(q), f(k), f(v), bias, scale)
+            # the backward from the kernel's own lse and delta, as the Function runs it
+            want_dq = fa.flash_bwd_dq_plain(f(q), f(k), f(v), bias, f(do), lse, delta, scale)
+            want_dk, want_dv = fa.flash_bwd_dkv_plain(
+                f(q), f(k), f(v), bias, f(do), lse, delta, scale)
+        tag = (f"b={b} h={h} T={t} d={d} {str(dtype).split('.')[-1]} "
+               f"{'ragged' if ragged else 'dense'}")
+        for name, a, a2 in (("dq", dq, dq2), ("dk", dk, dk2), ("dv", dv, dv2)):
+            if not torch.equal(a, a2):
+                raise AssertionError(f"flash {tag}: {name} does not repeat bit for bit")
+        lse_err = (lse - want_lse).abs().max().item()
+        if not lse_err <= LSE_TOL * max(1.0, want_lse.abs().max().item()):
+            raise AssertionError(f"flash {tag}: lse differs by {lse_err:.4g}")
+        tol, parts = FLASH_REL_TOL[dtype], [f"lse abs {lse_err:.3g}"]
+        for kernel, name, got, want in (
+                ("flash_fwd", "o", o, want_o), ("flash_bwd_dq", "dq", dq, want_dq),
+                ("flash_bwd_dkv", "dk", dk, want_dk), ("flash_bwd_dkv", "dv", dv, want_dv)):
+            got = got.float()
+            if got.shape != want.shape or not torch.isfinite(got).all():
+                raise AssertionError(f"flash {tag}: {name} non-finite or of wrong shape")
+            err, top = (got - want).abs().max().item(), want.abs().max().item()
+            parts.append(f"{name} {err / top:.3g} (abs {err:.3g})")
+            if err > tol * top:
+                raise AssertionError(f"flash {tag}: {name} rel err {err / top:.4g} > {tol}")
+            worst[kernel] = max(worst[kernel], err)
+        print(f"flash {tag}: rel err vs the fp32 plain versions (tol {tol}), backward "
+              f"bit-equal on a second launch: " + "; ".join(parts), flush=True)
+        del want_o, want_lse, want_dq, want_dk, want_dv
+    torch.cuda.empty_cache()
+    return worst
+
+
+def phase_flash_autograd(seed: int, dev):
+    """The autograd Function on the card (bf16 and fp32 inputs, ragged mask)
+    vs fp32 autograd through the plain forward; compared on kept positions
+    (a masked key's gradient is zero in both, a masked query row is a row
+    like any other)."""
+    from metatransformer_tpu_torch.ops import flash_attention as fa
+
+    for dtype in (BF, F32):
+        q, k, v, bias, do = _flash_inputs(2, 12, VT, 64, dtype, True, seed + 5, dev)
+        mask = bias == 0
+        leaves = [a.clone().requires_grad_(True) for a in (q, k, v)]
+        out = fa.flash_attention(*leaves, mask=mask)
+        out.backward(do)
+        ref = [a.float().requires_grad_(True) for a in (q, k, v)]
+        want, _ = fa.flash_attention_plain(*ref, bias, 0.125)
+        want.backward(do.float())
+        torch.cuda.synchronize()
+        tol, parts = FLASH_REL_TOL[dtype], []
+        pairs = [("out", out.detach(), want.detach())]
+        pairs += [(n, a.grad, b.grad) for n, a, b in zip(("dq", "dk", "dv"), leaves, ref)]
+        for name, got, exp in pairs:
+            if got is None or got.dtype != dtype:
+                raise AssertionError(f"flash autograd: {name} missing or of wrong dtype")
+            err = (got.float() - exp).abs().max().item()
+            top = exp.abs().max().item()
+            parts.append(f"{name} {err / top:.3g}")
+            if not err <= tol * top:
+                raise AssertionError(f"flash autograd {dtype}: {name} rel err {err / top:.4g}")
+        print(f"flash autograd b=2 h=12 T={VT} {str(dtype).split('.')[-1]} ragged: rel err "
+              f"vs fp32 autograd through the plain forward (tol {tol}): "
+              + ", ".join(parts), flush=True)
+        del leaves, ref, out, want
+    torch.cuda.empty_cache()
+
+
+def _video_cfg():
+    from metatransformer_tpu_torch.models import video_classifier as vc
+
+    return vc.VideoClassifierConfig()  # ViT-B16, 16 x 224^2, tubelet 2, patch 16, 400 classes
+
+
+def phase_video_serve(seed: int, dev):
+    """uint8 clips of b = 1 and 8 and one 15-view request (5 temporal x 3
+    spatial crops of a 40-frame 256 x 340 video) through a full-width
+    VideoClassifier; 12 forward-kernel launches a clip batch, none of the
+    short-sequence kernels; logits against the plain versions on the card."""
+    from metatransformer_tpu_torch import ops
+    from metatransformer_tpu_torch.core import encoder as enc
+    from metatransformer_tpu_torch.models import video_classifier as vc
+    from metatransformer_tpu_torch.models import video_eval
+
+    cfg = _video_cfg()
+    if cfg.tokenizer.num_patches != VT:
+        raise AssertionError(f"video geometry gives {cfg.tokenizer.num_patches} tokens")
+    params = vc.init(cfg, torch.Generator().manual_seed(seed))  # lands on the card
+    model = vc.VideoClassifier(cfg, params, precision=enc.BF16)
+    if next(model.buffers()).device.type != "cuda":
+        raise AssertionError("the video model did not land on the card")
+    g = torch.Generator().manual_seed(seed + 1)
+    requests = [torch.randint(0, 256, (b, 16, 224, 224, 3), generator=g, dtype=torch.uint8)
+                for b in VIDEO_SERVE_BATCHES]
+    video = torch.randint(0, 256, (40, 256, 340, 3), generator=g, dtype=torch.uint8).numpy()
+    depth = cfg.encoder.depth
+
+    def serve_all(count):
+        answers, counts = [], []
+        for clips in requests:
+            answers.append(model(clips.to(dev)))
+            counts.append(count())
+        mean_logits, views = video_eval.multiview_logits(lambda c: model(c.to(dev)), video)
+        answers.append(mean_logits[None])
+        counts.append(count())
+        return answers, counts, views
+
+    ops.reset_launch_counts()
+    answers, per_request, views = serve_all(ops.launch_counts)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    print(f"video: served {len(requests)} clip batches and one {views}-view request, kernel "
+          f"launches {launches}", flush=True)
+    if views != 15:
+        raise AssertionError(f"multiview request made {views} views, expected 15")
+    _check_launches_per_request(per_request, {"flash_fwd": depth}, "video serve")
+
+    with _plain_versions():
+        want, _, _ = serve_all(lambda: None)  # the plain versions count nothing
+    for logits, ref, what in zip(answers, want, [f"b={b}" for b in VIDEO_SERVE_BATCHES]
+                                 + ["15-view mean"]):
+        if logits.shape[-1] != VIDEO_CLASSES or not torch.isfinite(logits).all():
+            raise AssertionError(f"video {what}: logits {tuple(logits.shape)} or non-finite")
+        err = (logits - ref).abs().max().item()
+        top1 = (logits.argmax(-1) == ref.argmax(-1)).float().mean().item()
+        print(f"video request {what}: logits {tuple(logits.shape)}, max |kernel - plain| "
+              f"{err:.6g}, top-1 agreement {top1:.4f}", flush=True)
+        torch.testing.assert_close(logits, ref, atol=LOGIT_ATOL, rtol=LOGIT_RTOL)
+    return model, launches
+
+
+def _video_batch():
+    """One fixed batch of float clips from numpy's default_rng(0), labels
+    arange(B) % 400."""
+    clips = np.random.default_rng(0).standard_normal(
+        (VIDEO_TRAIN_BATCH, 16, 224, 224, 3), np.float32)
+    return {"input": clips, "label": np.arange(VIDEO_TRAIN_BATCH, dtype=np.int64) % 400}
+
+
+def _make_video_trainer(track: str, seed: int, lr: float = 1e-3):
+    """Full-width video classifier through the port's entry points (no
+    device named): AdamW at ``lr``, weight decay 0.05, BF16 policy."""
+    from metatransformer_tpu_torch.core import encoder as enc
+    from metatransformer_tpu_torch.models import video_classifier as vc
+    from metatransformer_tpu_torch.train import optim, step as step_lib
+    from metatransformer_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    cfg = _video_cfg()
+    params = vc.init(cfg, torch.Generator().manual_seed(seed))
+    frozen_keys = step_lib.FROZEN_KEYS if track == "frozen" else ()
+    if track == "frozen":  # a frozen encoder is cast once, outside the step
+        params["encoder"] = enc.cast_params(params["encoder"], enc.BF16)
+    trainer = Trainer(
+        lambda p, x, generator: vc.forward(p, x, cfg, enc.BF16),
+        optim.make_optimizer("adamw", lr=lr, weight_decay=0.05), params,
+        TrainerConfig(epochs=1, log_every=10**9), frozen_keys=frozen_keys,
+    )
+    if trainer.device.type != "cuda":
+        raise AssertionError("the video trainer did not land on the card")
+    return trainer
+
+
+def phase_video_train(seed: int, dev) -> dict:
+    depth = _video_cfg().encoder.depth
+    return _train_tracks(
+        "video train", lambda track, lr: _make_video_trainer(track, seed, lr), _video_batch(),
+        VIDEO_TRAIN_STEPS, {k: depth for k in FLASH_KERNELS}, {"frozen": 0, "full": 0},
+        VIDEO_CHECK_LR)
+
+
+def _mae_clips():
+    """One fixed batch of float clips in [0, 1) from numpy's default_rng(1)."""
+    return np.random.default_rng(1).random((MAE_BATCH, 16, 224, 224, 3), np.float32)
+
+
+def _make_mae_trainer(seed: int):
+    """The full-width video MAE (ViT-B16 encoder, 4 x 384 decoder) through
+    the port's entry points, everything trainable, AdamW 1e-3 / 0.05, FP32
+    policy as the reference's recipe calls it."""
+    from metatransformer_tpu_torch.models import video_pretrain as vp
+    from metatransformer_tpu_torch.train import optim
+    from metatransformer_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    cfg = vp.VideoMAEConfig()
+    return Trainer(
+        lambda p, x, generator: vp.forward_loss(p, x, generator, cfg)[0],
+        optim.make_optimizer("adamw", lr=1e-3, weight_decay=0.05),
+        vp.init(cfg, torch.Generator().manual_seed(seed)),
+        TrainerConfig(epochs=1, log_every=10**9),
+        loss_fn=lambda loss, label: loss, frozen_keys=(),
+    )
+
+
+def phase_video_mae(seed: int, dev) -> dict:
+    """Two AdamW steps of the video-MAE loss at batch 4 under the FP32
+    policy: the encoder sees 152 visible tokens (materialised attention),
+    the decoder (4 layers, 6 heads of 64) all 1568, through the fp32 route
+    of the flash kernels. Held against the plain versions on the card."""
+    from metatransformer_tpu_torch import ops
+    from metatransformer_tpu_torch.models import video_pretrain as vp
+
+    depth = vp.VideoMAEConfig().decoder.depth
+    clips = _mae_clips()
+
+    def run(count):
+        trainer = _make_mae_trainer(seed)
+        masks = torch.Generator(device=trainer.device).manual_seed(seed)
+        losses, counts = [], []
+        for _ in range(MAE_STEPS):
+            losses.append(trainer.train_epoch([{"input": clips}], masks)["loss"])
+            counts.append(count())
+        return losses, counts
+
+    ops.reset_launch_counts()
+    losses, per_step = run(ops.launch_counts)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    _check_launches_per_request(per_step, {k: depth for k in FLASH_KERNELS}, "video MAE step")
+    with _plain_versions():
+        ref_losses, _ = run(lambda: None)  # the plain versions count nothing
+    diffs = [abs(a - b) for a, b in zip(losses, ref_losses)]
+    print(f"video MAE: {MAE_STEPS} AdamW steps at batch {MAE_BATCH} (FP32 policy, fp32 "
+          f"kernels), losses " + " ".join(f"{v:.5f}" for v in losses)
+          + "; |loss diff| vs plain versions " + " ".join(f"{v:.2g}" for v in diffs)
+          + f" (tol {MAE_LOSS_TOL}); launches {launches}", flush=True)
+    if not all(np.isfinite(losses)):  # each step draws a new tube mask: no fall is asked
+        raise AssertionError(f"video MAE: losses {losses}")
+    if max(diffs) > MAE_LOSS_TOL:
+        raise AssertionError(f"video MAE: losses differ from the plain run: {diffs}")
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_video_mae_time(seed: int, dev):
+    from metatransformer_tpu_torch.models import video_pretrain as vp
+
+    trainer = _make_mae_trainer(seed)
+    masks = torch.Generator(device=trainer.device).manual_seed(seed)
+    on_card = trainer._to_device({"input": _mae_clips()})
+    step = lambda: trainer._step(trainer.trainable, trainer.frozen, on_card, masks)
+    torch.cuda.reset_peak_memory_stats()
+    ms = _median_ms(step)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"video MAE step b={MAE_BATCH} (FP32 policy, mask ratio "
+          f"{vp.VideoMAEConfig().mask_ratio}): {ms:.4f} ms, {MAE_BATCH * 1000.0 / ms:.2f} "
+          f"clips/s, peak memory {peak:.3f} GiB (median of {TIMING_REPS} optimizer steps, "
+          f"batch on the card)", flush=True)
+    del trainer
+    torch.cuda.empty_cache()
+
+
+def _flash_bounds(b, h, t, d, elem_bytes, masked) -> dict:
+    """Least time for each flash kernel's work at the real T: operations
+    (4, 6 and 8 B H T^2 d) over the peak rate of the element type (bf16:
+    tensor cores; fp32: plain FMAs), bytes (every operand read and every
+    output written once) over the memory rate; the larger."""
+    peak = PEAK_FLOPS if elem_bytes == 2 else PEAK_FLOPS_FP32
+    bh, tensor = b * h, b * h * t * d * elem_bytes
+    rows, bias = 4 * bh * t, (4 * b * t if masked else 0)
+    ops = {"flash_fwd": 4, "flash_bwd_dq": 6, "flash_bwd_dkv": 8}
+    nbytes = {
+        "flash_fwd": 4 * tensor + bias + rows,  # q, k, v in; o, lse out
+        "flash_bwd_dq": 5 * tensor + bias + 2 * rows,  # q, k, v, dO, lse, delta in; dq out
+        "flash_bwd_dkv": 6 * tensor + bias + 2 * rows,  # the same in; dk, dv out
+    }
+    out = {}
+    for name, mult in ops.items():
+        n_ops = mult * bh * t * t * d
+        t_ops, t_bytes = n_ops / peak * 1e3, nbytes[name] / PEAK_BYTES * 1e3
+        out[name] = {"bound_ms": max(t_ops, t_bytes),
+                     "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                     "gflop": n_ops / 1e9, "mbytes": nbytes[name] / 1e6}
+    return out
+
+
+def phase_flash_times(seed: int, dev) -> dict:
+    """Each flash kernel at the video training shape (b = 8, 12 heads,
+    T = 1568, head_dim 64, bf16, dense), its plain version, its bound, and
+    the library call for the same function: scaled_dot_product_attention
+    for the forward, autograd's backward through it for dq + dk/dv together
+    (timed here, used nowhere in the port). Also the b = 1 serving shape and
+    the fp32 route at the video-MAE decoder's shape."""
+    from metatransformer_tpu_torch.ops import flash_attention as fa
+
+    times = {}
+    for b, h, dtype in ((VIDEO_TRAIN_BATCH, HEADS, BF), (1, HEADS, BF), (MAE_BATCH, 6, F32)):
+        q, k, v, _, do = _flash_inputs(b, h, VT, HD, dtype, False, seed, dev)
+        scale = float(HD) ** -0.5
+        with torch.no_grad():
+            o, lse = fa.flash_fwd_cuda(q, k, v, None, scale)
+            delta = fa._delta(o, do)
+            bwd = (q, k, v, None, do, lse, delta, scale)
+            ms = {
+                "flash_fwd": _median_ms(lambda: fa.flash_fwd_cuda(q, k, v, None, scale)),
+                "flash_bwd_dq": _median_ms(lambda: fa.flash_bwd_dq_cuda(*bwd)),
+                "flash_bwd_dkv": _median_ms(lambda: fa.flash_bwd_dkv_cuda(*bwd)),
+            }
+        bounds = _flash_bounds(b, h, VT, HD, q.element_size(), False)
+        kind = str(dtype).split(".")[-1]
+        if (b, dtype) != (VIDEO_TRAIN_BATCH, BF):
+            for name in FLASH_KERNELS:
+                bound = bounds[name]
+                print(f"{name} b={b} h={h} T={VT} d={HD} {kind}: kernel {ms[name]:.4f} ms, bound "
+                      f"{bound['bound_ms']:.4f} ms by {bound['bound_by']} at the {kind} peak "
+                      f"({bound['gflop']:.2f} GFLOP, {bound['mbytes']:.1f} MB; "
+                      f"{bound['gflop'] / ms[name]:.2f} TFLOP/s) (median of {TIMING_REPS})",
+                      flush=True)
+            continue
+        f = lambda x: x.float()
+        with torch.no_grad():
+            plain_ms = {
+                "flash_fwd": _median_ms(
+                    lambda: fa.flash_attention_plain(f(q), f(k), f(v), None, scale)),
+                "flash_bwd_dq": _median_ms(lambda: fa.flash_bwd_dq_plain(
+                    f(q), f(k), f(v), None, f(do), lse, delta, scale)),
+                "flash_bwd_dkv": _median_ms(lambda: fa.flash_bwd_dkv_plain(
+                    f(q), f(k), f(v), None, f(do), lse, delta, scale)),
+            }
+            lq, lk, lv = (a.transpose(1, 2) for a in (q, k, v))  # [B, H, T, d] views
+            lib_fwd = _median_ms(lambda: F.scaled_dot_product_attention(lq, lk, lv))
+        leaves = [a.detach().clone().requires_grad_(True) for a in (lq, lk, lv)]
+        out = F.scaled_dot_product_attention(*leaves)  # untimed forward; its graph is kept
+        g = do.transpose(1, 2)
+        lib_bwd = _median_ms(lambda: torch.autograd.grad(out, leaves, g, retain_graph=True))
+        del out, leaves
+        library = {"flash_fwd": lib_fwd, "flash_bwd_dq": lib_bwd, "flash_bwd_dkv": lib_bwd}
+        for name in FLASH_KERNELS:
+            bound = bounds[name]
+            times[name] = {"ms": ms[name], "plain_ms": plain_ms[name],
+                           "library_ms": library[name],
+                           **{k: bound[k] for k in ("bound_ms", "bound_by")}}
+            what = ("scaled_dot_product_attention" if name == "flash_fwd" else
+                    "autograd's backward through scaled_dot_product_attention (dq, dk and dv "
+                    "together: one time for both backward kernels)")
+            print(f"{name} b={b} h={h} T={VT} d={HD} {kind}: kernel {ms[name]:.4f} ms, plain "
+                  f"{plain_ms[name]:.4f} ms, library {what} {library[name]:.4f} ms, bound "
+                  f"{bound['bound_ms']:.4f} ms by {bound['bound_by']} ({bound['gflop']:.2f} "
+                  f"GFLOP, {bound['mbytes']:.1f} MB; {100 * bound['bound_ms'] / ms[name]:.1f}% "
+                  f"of the bound's rate, {bound['gflop'] / ms[name]:.2f} TFLOP/s) (median of "
+                  f"{TIMING_REPS})", flush=True)
+        grid = -(-VT // 64) * h
+        print(f"grid: {grid} blocks a sample of 64 query (or key) rows x {h} heads; at b=1 "
+              f"that is {grid / 132:.2f} blocks for each of the card's 132 SMs", flush=True)
+    torch.cuda.empty_cache()
+    return times
+
+
+def phase_video_times(model, seed: int, dev, profile: bool):
+    g = torch.Generator().manual_seed(seed + 2)
+    with torch.no_grad():
+        for b in (8, 1):
+            clips = torch.randint(0, 256, (b, 16, 224, 224, 3), generator=g,
+                                  dtype=torch.uint8).to(dev)
+            ms = _median_ms(lambda: model(clips))
+            print(f"video forward b={b}: {ms:.4f} ms, {b * 1000.0 / ms:.2f} clips/s "
+                  f"(median of {TIMING_REPS}, uint8 on the card -> logits)", flush=True)
+            if profile:
+                _profile_step(lambda: model(clips), f"video forward b={b}")
+    del model
+    torch.cuda.empty_cache()
+    batch = _video_batch()
+    for track in ("frozen", "full"):
+        trainer = _make_video_trainer(track, seed)
+        on_card = trainer._to_device(batch)
+        step = lambda: trainer._step(trainer.trainable, trainer.frozen, on_card, None)
+        torch.cuda.reset_peak_memory_stats()
+        ms = _median_ms(step)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        print(f"video train step {track} b={VIDEO_TRAIN_BATCH}: {ms:.4f} ms, "
+              f"{VIDEO_TRAIN_BATCH * 1000.0 / ms:.2f} clips/s, peak memory {peak:.3f} GiB "
+              f"(median of {TIMING_REPS} optimizer steps, batch on the card)", flush=True)
+        if profile and track == "full":
+            _profile_step(step, "video full-track step")
+        del trainer
+        torch.cuda.empty_cache()
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
-                    help="also print device time by kernel of one full-track step")
+                    help="also print device time by kernel of one full-track image step, "
+                         "one video forward at b=8 and one full-track video step")
     args = ap.parse_args()
 
     phase_device()
@@ -651,10 +1150,30 @@ def main() -> None:
     torch.cuda.empty_cache()
     phase_train_times(args.seed, dev, args.profile)
 
-    by_path = {"serve": serve_launches, **{f"train_{k}": v for k, v in train_launches.items()}}
+    errs.update(phase_flash_kernels(args.seed, dev))
+    phase_flash_autograd(args.seed, dev)
+    video_model, video_serve_launches = phase_video_serve(args.seed, dev)
+    times.update(phase_flash_times(args.seed, dev))
+    phase_video_times(video_model, args.seed, dev, args.profile)
+    del video_model
+    torch.cuda.empty_cache()
+    video_train_launches = phase_video_train(args.seed, dev)
+    mae_launches = phase_video_mae(args.seed, dev)
+    phase_video_mae_time(args.seed, dev)
+
+    by_path = {
+        "serve": serve_launches,
+        **{f"train_{k}": v for k, v in train_launches.items()},
+        "video_serve": video_serve_launches,
+        **{f"video_train_{k}": v for k, v in video_train_launches.items()},
+        "video_mae": mae_launches,
+    }
     on_path = {  # the kernels each path must have gone through
         "serve": ("attn_sublayer", "mlp_sublayer"),
-        "train_frozen": tuple(KERNELS), "train_full": tuple(KERNELS),
+        "train_frozen": FUSED_KERNELS, "train_full": FUSED_KERNELS,
+        "video_serve": ("flash_fwd",),
+        "video_train_frozen": FLASH_KERNELS, "video_train_full": FLASH_KERNELS,
+        "video_mae": FLASH_KERNELS,
     }
     for path, kinds in on_path.items():
         for kind in kinds:
@@ -673,8 +1192,12 @@ def main() -> None:
             "plain_ms": times[name]["plain_ms"],
             "bound_ms": times[name]["bound_ms"],
             "bound_by": times[name]["bound_by"],
-            "library_ms": None,  # no single PyTorch call computes a whole sublayer
-            "library_composition_ms": times[name]["library_composition_ms"],
+            # one PyTorch call for the same function: scaled_dot_product_attention
+            # for the flash forward, autograd's backward through it for dq and
+            # dk/dv together; none computes a whole fused sublayer
+            "library_ms": times[name].get("library_ms"),
+            **({"library_composition_ms": times[name]["library_composition_ms"]}
+               if "library_composition_ms" in times[name] else {}),
         }
         for name, (replaces, source) in KERNELS.items()
     ]}), flush=True)

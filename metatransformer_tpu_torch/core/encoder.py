@@ -13,7 +13,9 @@ stay fp32 under both precision policies.
 The depth "scan" is a Python loop over the stacked leaves. Under BF16 the
 block resolves to the fused sublayers of :mod:`..ops.fused_block`, which
 launch hand-written CUDA kernels on CUDA tensors and run their plain
-PyTorch versions on CPU tensors.
+PyTorch versions on CPU tensors. Long sequences (T >= 512) resolve to
+"flash": the q, k, v and output projections are library matmuls and the
+attention itself is :mod:`..ops.flash_attention`, under both policies.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from metatransformer_tpu_torch.core import device as _device
+from metatransformer_tpu_torch.ops import flash_attention as _fa
 from metatransformer_tpu_torch.ops import fused_block as _fb
 
 Params = Dict[str, torch.Tensor]
@@ -39,7 +42,6 @@ _MATMUL_LEAVES = (
 # Attention paths whose kernels or modules are not ported yet, and where
 # ROADMAP.md queues them.
 _NOT_PORTED = {
-    "flash": "ROADMAP.md queue 2, kernels 4-6 (ops/flash_attention.py)",
     "ring": "ROADMAP.md queue 1, item 10 (parallel/ring_attention.py)",
     "performer": "ROADMAP.md queue 1, item 7 (ops/performer.py)",
 }
@@ -72,7 +74,7 @@ class EncoderConfig:
     num_heads: int = 12
     mlp_ratio: float = 4.0
     ln_eps: float = 1e-5  # torch nn.LayerNorm default
-    attn_impl: str = "auto"  # "xla" | "fused" | "auto" (others not ported)
+    attn_impl: str = "auto"  # "xla" | "fused" | "flash" | "auto" (others not ported)
     # Gradient checkpointing over the depth loop. False: off. True:
     # recompute each block in the backward pass (activation memory O(1)
     # blocks). "save": keep the block's intermediates for the backward; the
@@ -107,9 +109,10 @@ def layer_norm(
     return y.to(x.dtype)
 
 
-def _flash_supported(seq_len: int, head_dim: int) -> bool:
-    """``ops/flash_attention.supported`` of the reference (not ported yet)."""
-    return head_dim in (32, 64, 128) and seq_len >= 512
+def _linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``x @ w + b`` with w stored [in, out], as one library call: the bias
+    is added in the matmul's epilogue, not in a second pass over the output."""
+    return F.linear(x, w.t(), b)
 
 
 def attention(
@@ -119,26 +122,34 @@ def attention(
     mask: Optional[torch.Tensor],
     precision: Precision,
 ) -> torch.Tensor:
-    """timm-Attention-equivalent multi-head self-attention (the XLA path).
+    """timm-Attention-equivalent multi-head self-attention.
 
-    q/k/v are produced head-major ``[B, H, T, d]`` against the reshaped
-    fused-qkv weight. Masked keys are filled with -1e4 under bf16 and with
-    ``finfo(float32).min`` under fp32, as the reference does.
+    "xla": q/k/v are produced head-major ``[B, H, T, d]`` against the
+    reshaped fused-qkv weight and the [T, T] logits are materialised. Masked
+    keys are filled with -1e4 under bf16 and with ``finfo(float32).min``
+    under fp32, as the reference does. "flash": one fused-qkv matmul gives
+    ``[B, T, 3, H, d]``, whose three strided views go to
+    :func:`..ops.flash_attention.flash_attention` uncopied.
     """
     b, t, d = x.shape
     h, hd = cfg.num_heads, cfg.head_dim
     cd = precision.compute_dtype
     impl = cfg.attn_impl
     if impl == "auto":
-        impl = "flash" if _flash_supported(t, hd) else "xla"
+        impl = "flash" if _fa.supported(t, hd) else "xla"
     if impl in _NOT_PORTED:
         raise NotImplementedError(
             f"attn_impl={impl!r} is not ported yet: {_NOT_PORTED[impl]}"
         )
     xc = x.to(cd)
+    scale = float(hd) ** -0.5
+    if impl == "flash":
+        qkv = _linear(xc, p["qkv_w"].to(cd), p["qkv_b"].to(cd)).reshape(b, t, 3, h, hd)
+        q, k, v = qkv.unbind(2)  # [B, T, H, d] views
+        o = _fa.flash_attention(q, k, v, mask=mask, scale=scale).reshape(b, t, d)
+        return _linear(o, p["proj_w"].to(cd), p["proj_b"].to(cd)).to(x.dtype)
     w = p["qkv_w"].to(cd).reshape(d, 3, h, hd)
     b3 = p["qkv_b"].to(cd).reshape(3, h, hd)
-    scale = float(hd) ** -0.5
 
     q = torch.einsum("btd,dhk->bhtk", xc, w[:, 0]) + b3[0][:, None]
     k = torch.einsum("btd,dhk->bhtk", xc, w[:, 1]) + b3[1][:, None]
@@ -175,7 +186,7 @@ def _resolve_impl(cfg: EncoderConfig, seq_len: int, precision: Precision) -> str
         return impl
     if precision.is_bf16 and _fb.supported(seq_len, cfg.dim, cfg.num_heads):
         return "fused"
-    if _flash_supported(seq_len, cfg.head_dim):
+    if _fa.supported(seq_len, cfg.head_dim):
         return "flash"
     return "xla"
 
@@ -183,14 +194,13 @@ def _resolve_impl(cfg: EncoderConfig, seq_len: int, precision: Precision) -> str
 def mlp(x: torch.Tensor, p: Params, precision: Precision) -> torch.Tensor:
     """timm Mlp: Linear -> exact GELU -> Linear."""
     cd = precision.compute_dtype
-    h = x.to(cd) @ p["fc1_w"].to(cd) + p["fc1_b"].to(cd)
+    h = _linear(x.to(cd), p["fc1_w"].to(cd), p["fc1_b"].to(cd))
     # GELU in fp32 for the parity policy; in the compute dtype for bf16.
     if precision.is_bf16:
         h = F.gelu(h)
     else:
         h = F.gelu(h.float()).to(cd)
-    h = h @ p["fc2_w"].to(cd) + p["fc2_b"].to(cd)
-    return h.to(x.dtype)
+    return _linear(h, p["fc2_w"].to(cd), p["fc2_b"].to(cd)).to(x.dtype)
 
 
 def block(

@@ -31,6 +31,7 @@ FLAGS = (
 )
 
 _vp, _int, _float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_ll = ctypes.c_longlong
 # source -> {exported function: argument types}; every function returns int.
 _SOURCES = {
     _CSRC / "fused_block.cu": {
@@ -46,6 +47,16 @@ _SOURCES = {
         # stream
         "mt_attn_sublayer_bwd": [_vp] * 20 + [_int] * 4 + [_float, _vp],
         "mt_ln_grad_chunks": [_int],
+    },
+    _CSRC / "flash_attention.cu": {
+        # q, k, v, bias, o, lse, B, T, H, hd, q/k/v strides (b, t, h), scale,
+        # is_fp32, stream
+        "mt_flash_fwd": [_vp] * 6 + [_int] * 4 + [_ll] * 3 + [_float, _int, _vp],
+        # q, k, v, bias, d_o, lse, delta, dq, B, T, H, hd, q/k/v strides,
+        # dq strides, scale, is_fp32, stream
+        "mt_flash_bwd_dq": [_vp] * 8 + [_int] * 4 + [_ll] * 6 + [_float, _int, _vp],
+        # as mt_flash_bwd_dq with the outputs dk, dv (shared strides)
+        "mt_flash_bwd_dkv": [_vp] * 9 + [_int] * 4 + [_ll] * 6 + [_float, _int, _vp],
     },
 }
 

@@ -1,5 +1,6 @@
-// Device code shared by the fused-sublayer kernels of this package
-// (fused_block.cu: forward, fused_block_bwd.cu: attention-sublayer backward):
+// Device code shared by the kernels of this package (fused_block.cu:
+// sublayer forwards, fused_block_bwd.cu: attention-sublayer backward,
+// flash_attention.cu, which uses the bf16 and cp.async helpers only):
 // bf16 helpers, the row LayerNorm and the tensor-core GEMM. Each .cu file
 // that includes this header is compiled on its own into its own shared
 // library, so everything here lives in an anonymous namespace.

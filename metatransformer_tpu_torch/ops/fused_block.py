@@ -376,7 +376,7 @@ def _route(x: torch.Tensor, plain, cuda):
         return plain
     if x.device.type == "cuda":
         return cuda
-    raise NotImplementedError(f"fused sublayers run on cpu or cuda, not {x.device}")
+    raise NotImplementedError(f"the kernels' wrappers run on cpu or cuda, not {x.device}")
 
 
 class _AttnSublayer(torch.autograd.Function):

@@ -4,6 +4,7 @@ torch oracle (tests/torch_ref.py).
 Weights travel JAX -> numpy -> ``convert.from_numpy``; inputs come from
 seeded numpy. The JAX fused sublayers run in Pallas interpret mode."""
 
+import dataclasses
 import subprocess
 import sys
 from pathlib import Path
@@ -132,7 +133,7 @@ def test_encode_bf16_xla_path_matches_jax_xla():
 @pytest.mark.parametrize("t", [1, 17, 197, 257, 456, 457, 512, 1568])
 def test_resolve_impl_matches_jax(t):
     for d, h in ((128, 2), (768, 12), (768, 32), (1024, 16), (96, 3), (1024, 8)):
-        for impl in ("auto", "xla", "fused"):
+        for impl in ("auto", "xla", "fused", "flash"):
             jcfg = jenc.EncoderConfig(dim=d, depth=1, num_heads=h, attn_impl=impl)
             cfg = enc.EncoderConfig(dim=d, depth=1, num_heads=h, attn_impl=impl)
             for jp, p in ((jenc.FP32, enc.FP32), (jenc.BF16, enc.BF16)):
@@ -141,17 +142,41 @@ def test_resolve_impl_matches_jax(t):
 
 @pytest.mark.parametrize("impl", ["flash", "ring", "performer"])
 def test_unported_attention_paths_raise(impl):
-    cfg = enc.EncoderConfig(dim=64, depth=1, num_heads=4, attn_impl=impl)
+    """"ring" and "performer" raise and name their queue; "flash" is ported
+    and runs at any length when asked for by name."""
+    cfg = enc.EncoderConfig(dim=64, depth=1, num_heads=2, attn_impl=impl)
     params = enc.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    x = torch.randn(1, 5, 64, generator=torch.Generator().manual_seed(1))
+    if impl == "flash":
+        want = enc.encode(params, x, dataclasses.replace(cfg, attn_impl="xla"))
+        torch.testing.assert_close(enc.encode(params, x, cfg), want, atol=1e-5, rtol=1e-5)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        enc.encode(params, torch.zeros(1, 5, 64), cfg)
+        enc.encode(params, x, cfg)
 
 
-def test_auto_long_sequence_raises_instead_of_falling_back():
-    cfg = enc.EncoderConfig(dim=64, depth=1, num_heads=2)
+def test_auto_long_sequence_raises_instead_of_falling_back(monkeypatch):
+    """T >= 512 under "auto" goes through ops.flash_attention (once a layer)
+    and nowhere else: with that op failing, encode raises, it does not fall
+    back to the materialised path."""
+    from metatransformer_tpu_torch.ops import flash_attention as fa
+
+    cfg = enc.EncoderConfig(dim=64, depth=2, num_heads=2)
     params = enc.init(cfg, torch.Generator().manual_seed(0), device="cpu")
-    with pytest.raises(NotImplementedError, match="flash"):
-        enc.encode(params, torch.zeros(1, 512, 64), cfg)
+    x = torch.randn(1, 512, 64, generator=torch.Generator().manual_seed(1))
+    calls = []
+    real = fa.flash_attention
+    monkeypatch.setattr(
+        fa, "flash_attention", lambda *a, **kw: calls.append(1) or real(*a, **kw))
+    out = enc.encode(params, x, cfg)
+    assert len(calls) == 2 and torch.isfinite(out).all()
+
+    def broken(*a, **kw):
+        raise RuntimeError("flash kernel failed")
+
+    monkeypatch.setattr(fa, "flash_attention", broken)
+    with pytest.raises(RuntimeError, match="flash kernel failed"):
+        enc.encode(params, x, cfg)
 
 
 def _encode_grads(np_params, x, cfg, precision, remat):
@@ -334,11 +359,16 @@ def test_port_never_imports_jax():
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', "
         "'metatransformer_tpu.')) or m == 'metatransformer_tpu']\n"
         "assert not bad, bad\n"
-        "print(len([m for m in sys.modules if m.startswith(p.__name__)]))\n"
+        "mods = [m for m in sys.modules if m.startswith(p.__name__)]\n"
+        "new = ['ops.flash_attention', 'tokenizers.video', 'models.video_classifier', "
+        "'models.video_eval', 'models.video_pretrain']\n"
+        "missing = [n for n in new if p.__name__ + '.' + n not in mods]\n"
+        "assert not missing, missing\n"
+        "print(len(mods))\n"
     )
     out = subprocess.run(
         [sys.executable, "-c", code], capture_output=True, text=True, timeout=120,
         cwd=Path(__file__).resolve().parent.parent,
     )
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout) >= 24
+    assert int(out.stdout) >= 29
