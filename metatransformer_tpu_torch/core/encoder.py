@@ -62,6 +62,14 @@ class Precision:
     def is_bf16(self) -> bool:
         return self.compute_dtype == torch.bfloat16
 
+    @property
+    def mm(self) -> str:
+        """Matmul precision for stacks outside the encoder that run on fp32
+        activations (the point tokenizer's conv stack): "highest" is full
+        fp32, "default" rounds both operands to bf16 and accumulates in
+        fp32, the counterpart of the reference's ``Precision.DEFAULT``."""
+        return "default" if self.is_bf16 else "highest"
+
 
 FP32 = Precision(torch.float32)
 BF16 = Precision(torch.bfloat16)

@@ -1,13 +1,18 @@
 """Hand-written kernels of the port, each beside its plain PyTorch version."""
 
-from metatransformer_tpu_torch.ops import flash_attention, fused_block  # noqa: F401
+from metatransformer_tpu_torch.ops import flash_attention, fused_block, point_ops  # noqa: F401
+
+_KERNEL_MODULES = (fused_block, flash_attention, point_ops)
 
 
 def launch_counts() -> dict:
     """Kernel launches since the last reset, over every kernel of the package."""
-    return {**fused_block.launch_counts(), **flash_attention.launch_counts()}
+    counts = {}
+    for module in _KERNEL_MODULES:
+        counts.update(module.launch_counts())
+    return counts
 
 
 def reset_launch_counts() -> None:
-    fused_block.reset_launch_counts()
-    flash_attention.reset_launch_counts()
+    for module in _KERNEL_MODULES:
+        module.reset_launch_counts()

@@ -361,7 +361,9 @@ def test_port_never_imports_jax():
         "assert not bad, bad\n"
         "mods = [m for m in sys.modules if m.startswith(p.__name__)]\n"
         "new = ['ops.flash_attention', 'tokenizers.video', 'models.video_classifier', "
-        "'models.video_eval', 'models.video_pretrain']\n"
+        "'models.video_eval', 'models.video_pretrain', 'ops.point_ops', 'ops.point_interp', "
+        "'tokenizers.point', 'models.point_classifier', 'models.point_segmenter', "
+        "'models.point_mae', 'models.point_multiview', 'runtime.native']\n"
         "missing = [n for n in new if p.__name__ + '.' + n not in mods]\n"
         "assert not missing, missing\n"
         "print(len(mods))\n"
@@ -371,4 +373,4 @@ def test_port_never_imports_jax():
         cwd=Path(__file__).resolve().parent.parent,
     )
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout) >= 29
+    assert int(out.stdout) >= 38

@@ -59,6 +59,8 @@ CASES = [
     (2, 1568, 2, 64, torch.bfloat16, True),
     (2, 512, 3, 32, torch.bfloat16, True),
     (2, 577, 2, 128, torch.bfloat16, True),
+    (2, 513, 12, 64, torch.bfloat16, False),  # 8 * 64 + 1: the last tile holds one row
+    (2, 513, 12, 64, torch.bfloat16, True),
     (1, 40, 2, 64, torch.bfloat16, False),
     (2, 1568, 2, 64, torch.float32, True),
     (2, 300, 2, 32, torch.float32, False),

@@ -55,7 +55,7 @@ def _max_err(got, want):
 @pytest.mark.parametrize(
     "b, t, d, h, masked",
     [(3, 197, 768, 12, False), (3, 197, 768, 12, True), (2, 17, 256, 8, False),
-     (2, 100, 1024, 8, True)],
+     (2, 100, 1024, 8, True), (4, 257, 768, 12, False), (4, 257, 768, 12, True)],
 )
 def test_attn_kernel_matches_plain(cuda_device, b, t, d, h, masked):
     args = _inputs(b, t, d, 3 * d, d, seed=t, dev=cuda_device)
@@ -73,7 +73,7 @@ def test_attn_kernel_matches_plain(cuda_device, b, t, d, h, masked):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b, t", [(3, 197), (2, 17)])
+@pytest.mark.parametrize("b, t", [(3, 197), (2, 17), (4, 257)])
 def test_mlp_kernel_matches_plain(cuda_device, b, t):
     args = _inputs(b, t, 768, 3072, 3072, seed=t, dev=cuda_device)
     before = fb.mlp_sublayer_cuda.launches
@@ -88,7 +88,7 @@ def test_mlp_kernel_matches_plain(cuda_device, b, t):
 @pytest.mark.parametrize(
     "b, t, d, h, masked",
     [(3, 197, 768, 12, False), (3, 197, 768, 12, True), (2, 100, 256, 8, False),
-     (2, 300, 256, 2, True)],
+     (2, 300, 256, 2, True), (4, 257, 768, 12, False), (4, 257, 768, 12, True)],
 )
 def test_attn_bwd_kernel_matches_plain(cuda_device, b, t, d, h, masked):
     """All six outputs of the backward kernel vs its plain version in fp32
