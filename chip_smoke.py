@@ -6,6 +6,7 @@ trained, segmenter served, masked point ViT trained) on one NVIDIA GPU
 through the hand-written kernels.
 
     python3 chip_smoke.py [--seed N] [--profile]
+    python3 chip_smoke.py --bwd-times   # only the flash backward and video-step times
 
 Phases (any failed check raises, so the process exits non-zero):
 
@@ -34,13 +35,17 @@ Phases (any failed check raises, so the process exits non-zero):
    ``--profile``, device time by kernel of a full-track step;
 9. video: hold the three flash-attention kernels (forward, dq, dk/dv)
    against their plain versions at B*H = 12 and 96, T = 1568, head_dim 64,
-   dense and ragged, at the segmenter's T = 513 (a last tile of one row),
-   at head_dim 32 and 128, in bf16 and fp32, and the autograd Function against fp32 autograd; serve uint8 clips of b = 1 and 8
-   and one 15-view request through a full-width ``VideoClassifier``; take 4
-   AdamW steps of each track at batch 8 through ``Trainer``; take 2 steps of
-   the video-MAE loss at batch 4 (the fp32 kernel route); each against the
-   plain versions on the card; then time the kernels, the clip forward and
-   one step of each track;
+   dense, ragged and with a fully masked sample, at the segmenter's T = 513
+   (a last tile of one row), at the edges of the bf16 backward's 128-row
+   blocks (T = 127, 128, 129, 257), at head_dim 32 and 128, in bf16 and
+   fp32, and the autograd Function against fp32 autograd; serve uint8 clips
+   of b = 1 and 8 and one 15-view request through a full-width
+   ``VideoClassifier``; take 4 AdamW steps of each track at batch 8 through
+   ``Trainer``, and one full-track step with ``remat=True`` against one
+   without from the same weights and batch; take 2 steps of the video-MAE
+   loss at batch 4 (the fp32 kernel route); each against the plain versions
+   on the card; then time the kernels, the whole flash backward, the clip
+   forward and one step of each track;
 10. point clouds: hold the furthest-point-sampling kernel against its plain
     version index for index (both routes, duplicated points, ragged masks,
     a second launch); serve float clouds of b = 1, 8, 64 (1024 points, 257
@@ -59,6 +64,7 @@ any result.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -188,9 +194,9 @@ KERNELS = {
         "metatransformer_tpu/ops/fused_block.py:310", CSRC + "fused_block_bwd.cu"),
     "flash_fwd": ("metatransformer_tpu/ops/flash_attention.py:70", CSRC + "flash_attention.cu"),
     "flash_bwd_dq": (
-        "metatransformer_tpu/ops/flash_attention.py:137", CSRC + "flash_attention.cu"),
+        "metatransformer_tpu/ops/flash_attention.py:137", CSRC + "flash_attention_bwd.cu"),
     "flash_bwd_dkv": (
-        "metatransformer_tpu/ops/flash_attention.py:176", CSRC + "flash_attention.cu"),
+        "metatransformer_tpu/ops/flash_attention.py:176", CSRC + "flash_attention_bwd.cu"),
     "fps": ("metatransformer_tpu/ops/point_ops.py:67", CSRC + "point_ops.cu"),
 }
 FUSED_KERNELS = ("attn_sublayer", "mlp_sublayer", "attn_sublayer_bwd")
@@ -218,6 +224,18 @@ def phase_build():
     _build.library()
     names = ", ".join(p.name for p in _build.library_paths().values())
     print(f"build: {names} in {time.perf_counter() - t0:.2f} s", flush=True)
+    if hasattr(_build, "ptxas_report"):  # registers, shared memory, spills of the wgmma kernels
+        kernel = None
+        for line in _build.ptxas_report("flash_attention_bwd.cu").splitlines():
+            if "Compiling entry function" in line:
+                name = line.split("'")[1]
+                kernel = None
+                if "wgmma" in name:  # ...flash_bwd_dq_wgmmaILi64EEEv...: the head_dim
+                    hd = name.split("wgmmaILi")[1].split("E")[0]
+                    kernel = f"{name[name.index('flash_bwd'):name.index('ILi')]} head_dim {hd}"
+            elif line.startswith("ptxas") and "warning" in line or (
+                    kernel and ("spill" in line or "Used" in line)):
+                print(f"ptxas -v {kernel}: {line.strip()}", flush=True)
 
 
 # --------------------------------------------------------------------------
@@ -800,14 +818,20 @@ def _profile_step(step, what: str = "full-track step", steps: int = 3):
 # --------------------------------------------------------------------------
 
 BF, F32 = torch.bfloat16, torch.float32
-FLASH_CASES = [  # b, h, t, head_dim, dtype, ragged mask
+EMPTY = "empty"  # ragged, and sample 1 has no kept key
+FLASH_CASES = [  # b, h, t, head_dim, dtype, mask: False (dense), True (ragged) or EMPTY
     (1, 12, VT, 64, BF, False), (1, 12, VT, 64, BF, True),
-    (8, 12, VT, 64, BF, False), (8, 12, VT, 64, BF, True),
+    (8, 12, VT, 64, BF, False), (8, 12, VT, 64, BF, True), (3, 12, VT, 64, BF, EMPTY),
     (2, 4, 512, 32, BF, True), (2, 4, 577, 32, BF, False),
     (2, 2, 512, 128, BF, False), (2, 2, 577, 128, BF, True),
     # the segmenter's requests: T = 8 * 64 + 1, the last tile holds one row
     (1, 12, SEG_T, 64, BF, False), (8, 12, SEG_T, 64, BF, False),
-    (8, 12, SEG_T, 64, BF, True),
+    (8, 12, SEG_T, 64, BF, True), (2, 4, SEG_T, 32, BF, True), (2, 4, SEG_T, 128, BF, True),
+    # the bf16 backward's 128-row blocks and 64-row streamed tiles
+    (2, 4, 127, 64, BF, False), (2, 4, 127, 64, BF, True),
+    (2, 4, 128, 64, BF, False), (2, 4, 128, 64, BF, True),
+    (2, 4, 129, 64, BF, False), (2, 4, 129, 64, BF, True),
+    (2, 4, 257, 64, BF, False), (2, 4, 257, 64, BF, True),
     (4, 6, VT, 64, F32, False), (1, 12, VT, 64, F32, True),
     (2, 4, 577, 32, F32, True), (2, 2, 577, 128, F32, True),
 ]
@@ -817,7 +841,7 @@ def _flash_inputs(b, h, t, d, dtype, ragged, seed, dev):
     """Seeded unit-normal q, k, v as strided views of one [B, T, 3, H, d]
     tensor (the layout the encoder hands over), a cotangent, and the key
     bias of a ragged keep-mask (sample i loses its last (i+1) t / (2b+2)
-    keys) or None."""
+    keys; with ``EMPTY`` sample 1 loses them all) or None."""
     from metatransformer_tpu_torch.ops import flash_attention as fa
 
     g = torch.Generator().manual_seed(seed)
@@ -828,14 +852,18 @@ def _flash_inputs(b, h, t, d, dtype, ragged, seed, dev):
         keep = torch.ones(b, t, dtype=torch.bool, device=dev)
         for i in range(b):
             keep[i, t - (i + 1) * t // (2 * b + 2):] = False
+        if ragged == EMPTY:
+            keep[1] = False
         bias = torch.where(keep, 0.0, fa.NEG_INF).float()
     return (*qkv.unbind(2), bias, do)
 
 
 def phase_flash_kernels(seed: int, dev) -> dict:
     """Kernels #4-#6 vs their plain versions in fp32 from the same inputs;
-    lse held too; both backward kernels bit-equal on a second launch.
-    Returns the worst absolute error of each kernel."""
+    lse held too; both backward kernels bit-equal on a second launch. A
+    sample with no kept key is held to be finite only: the reference pads T
+    and spreads its uniform p over the padded keys too. Returns the worst
+    absolute error of each kernel."""
     from metatransformer_tpu_torch.ops import flash_attention as fa
 
     worst = {k: 0.0 for k in FLASH_KERNELS}
@@ -856,11 +884,19 @@ def phase_flash_kernels(seed: int, dev) -> dict:
             want_dq = fa.flash_bwd_dq_plain(f(q), f(k), f(v), bias, f(do), lse, delta, scale)
             want_dk, want_dv = fa.flash_bwd_dkv_plain(
                 f(q), f(k), f(v), bias, f(do), lse, delta, scale)
-        tag = (f"b={b} h={h} T={t} d={d} {str(dtype).split('.')[-1]} "
-               f"{'ragged' if ragged else 'dense'}")
+        mask_name = {False: "dense", True: "ragged", EMPTY: "ragged, sample 1 empty"}[ragged]
+        tag = f"b={b} h={h} T={t} d={d} {str(dtype).split('.')[-1]} {mask_name}"
         for name, a, a2 in (("dq", dq, dq2), ("dk", dk, dk2), ("dv", dv, dv2)):
             if not torch.equal(a, a2):
                 raise AssertionError(f"flash {tag}: {name} does not repeat bit for bit")
+        for name, a in (("o", o), ("lse", lse), ("dq", dq), ("dk", dk), ("dv", dv)):
+            if not torch.isfinite(a).all():
+                raise AssertionError(f"flash {tag}: {name} is not finite")
+        live = [i for i in range(b) if ragged != EMPTY or i != 1]  # samples with a kept key
+        lse, want_lse = lse[live], want_lse[live]
+        o, dq, dk, dv = o[live], dq[live], dk[live], dv[live]
+        want_o, want_dq, want_dk, want_dv = (
+            want_o[live], want_dq[live], want_dk[live], want_dv[live])
         lse_err = (lse - want_lse).abs().max().item()
         if not lse_err <= LSE_TOL * max(1.0, want_lse.abs().max().item()):
             raise AssertionError(f"flash {tag}: lse differs by {lse_err:.4g}")
@@ -989,15 +1025,18 @@ def _video_batch():
     return {"input": clips, "label": np.arange(VIDEO_TRAIN_BATCH, dtype=np.int64) % 400}
 
 
-def _make_video_trainer(track: str, seed: int, lr: float = 1e-3):
+def _make_video_trainer(track: str, seed: int, lr: float = 1e-3, remat: bool = False):
     """Full-width video classifier through the port's entry points (no
-    device named): AdamW at ``lr``, weight decay 0.05, BF16 policy."""
+    device named): AdamW at ``lr``, weight decay 0.05, BF16 policy;
+    ``remat`` recomputes each encoder block in the backward."""
+
     from metatransformer_tpu_torch.core import encoder as enc
     from metatransformer_tpu_torch.models import video_classifier as vc
     from metatransformer_tpu_torch.train import optim, step as step_lib
     from metatransformer_tpu_torch.train.trainer import Trainer, TrainerConfig
 
     cfg = _video_cfg()
+    cfg = dataclasses.replace(cfg, encoder=dataclasses.replace(cfg.encoder, remat=remat))
     params = vc.init(cfg, torch.Generator().manual_seed(seed))
     frozen_keys = step_lib.FROZEN_KEYS if track == "frozen" else ()
     if track == "frozen":  # a frozen encoder is cast once, outside the step
@@ -1018,6 +1057,45 @@ def phase_video_train(seed: int, dev) -> dict:
         "video train", lambda track, lr: _make_video_trainer(track, seed, lr), _video_batch(),
         VIDEO_TRAIN_STEPS, {k: depth for k in FLASH_KERNELS}, {"frozen": 0, "full": 0},
         VIDEO_CHECK_LR)
+
+
+def phase_video_remat(seed: int, dev):
+    """One full-track video step at b = 8 with ``remat=True`` against one
+    with ``remat=False`` from the same weights and batch. Under remat each
+    block runs its forward again in the backward (24 forward-kernel
+    launches a step, not 12), and the backward kernels read the recomputed
+    lse. The losses and the largest leaf's gradient are held within
+    BWD_REL_TOL of each other (relative to the larger value); both peak
+    memories are printed."""
+    from metatransformer_tpu_torch import ops
+
+    depth, batch, runs = _video_cfg().encoder.depth, _video_batch(), {}
+    for remat in (False, True):
+        trainer = _make_video_trainer("full", seed, VIDEO_CHECK_LR["full"], remat=remat)
+        path, leaf = _largest_leaf(trainer.trainable)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        loss = trainer.train_epoch([batch])["loss"]
+        torch.cuda.synchronize()
+        runs[remat] = (loss, leaf.grad.detach().clone(), ops.launch_counts(),
+                       torch.cuda.max_memory_allocated() / 2**30)
+        del trainer, leaf
+        torch.cuda.empty_cache()
+    (loss0, grad0, counts0, peak0), (loss1, grad1, counts1, peak1) = runs[False], runs[True]
+    want = {"flash_fwd": 2 * depth, "flash_bwd_dq": depth, "flash_bwd_dkv": depth}
+    if {k: v for k, v in counts1.items() if v} != want:
+        raise AssertionError(f"video remat step: launches {counts1}, expected {want}")
+    loss_rel = abs(loss1 - loss0) / abs(loss0)
+    grad_rel = ((grad1 - grad0).abs().max() / grad0.abs().max()).item()
+    print(f"video remat: one full-track step at batch {VIDEO_TRAIN_BATCH}, remat=True vs "
+          f"False: losses {loss1:.6f} / {loss0:.6f} (relative diff {loss_rel:.3g}), first "
+          f"gradient of {'/'.join(path)} relative max diff {grad_rel:.3g} (tol {BWD_REL_TOL}); "
+          f"launches {counts1} vs {counts0}; peak memory {peak1:.3f} GiB with remat, "
+          f"{peak0:.3f} GiB without", flush=True)
+    if not (loss_rel <= BWD_REL_TOL and grad_rel <= BWD_REL_TOL):
+        raise AssertionError("video remat step differs from the step without remat")
+    return counts1
 
 
 def _mae_clips():
@@ -1123,8 +1201,9 @@ def phase_flash_times(seed: int, dev) -> dict:
     T = 1568, head_dim 64, bf16, dense), its plain version, its bound, and
     the library call for the same function: scaled_dot_product_attention
     for the forward, autograd's backward through it for dq + dk/dv together
-    (timed here, used nowhere in the port). Also the b = 1 serving shape and
-    the fp32 route at the video-MAE decoder's shape."""
+    (timed here, used nowhere in the port), beside which stands the port's
+    whole backward (``_backward``: delta and both kernels). Also the b = 1
+    serving shape and the fp32 route at the video-MAE decoder's shape."""
     from metatransformer_tpu_torch.ops import flash_attention as fa
 
     times = {}
@@ -1168,12 +1247,16 @@ def phase_flash_times(seed: int, dev) -> dict:
         g = do.transpose(1, 2)
         lib_bwd = _median_ms(lambda: torch.autograd.grad(out, leaves, g, retain_graph=True))
         del out, leaves
+        with torch.no_grad():
+            port_bwd = _median_ms(lambda: fa._backward(q, k, v, None, o, lse, do, scale))
         library = {"flash_fwd": lib_fwd, "flash_bwd_dq": lib_bwd, "flash_bwd_dkv": lib_bwd}
         for name in FLASH_KERNELS:
             bound = bounds[name]
             times[name] = {"ms": ms[name], "plain_ms": plain_ms[name],
                            "library_ms": library[name],
                            **{k: bound[k] for k in ("bound_ms", "bound_by")}}
+            if name != "flash_fwd":  # what the library's number covers, on the port
+                times[name]["port_backward_ms"] = port_bwd
             what = ("scaled_dot_product_attention" if name == "flash_fwd" else
                     "autograd's backward through scaled_dot_product_attention (dq, dk and dv "
                     "together: one time for both backward kernels)")
@@ -1183,11 +1266,46 @@ def phase_flash_times(seed: int, dev) -> dict:
                   f"GFLOP, {bound['mbytes']:.1f} MB; {100 * bound['bound_ms'] / ms[name]:.1f}% "
                   f"of the bound's rate, {bound['gflop'] / ms[name]:.2f} TFLOP/s) (median of "
                   f"{TIMING_REPS})", flush=True)
+        print(f"flash backward b={b} h={h} T={VT} d={HD} {kind}: the port's whole backward "
+              f"(delta as a torch reduction, then dq and dk/dv) {port_bwd:.4f} ms, library "
+              f"{lib_bwd:.4f} ms (median of {TIMING_REPS})", flush=True)
         grid = -(-VT // 64) * h
-        print(f"grid: {grid} blocks a sample of 64 query (or key) rows x {h} heads; at b=1 "
-              f"that is {grid / 132:.2f} blocks for each of the card's 132 SMs", flush=True)
+        bwd_grid = -(-VT // 128) * h
+        print(f"grid: {grid} blocks a sample of 64 query rows x {h} heads (forward), "
+              f"{bwd_grid} of 128 rows (bf16 backward); at b=1 that is {grid / 132:.2f} and "
+              f"{bwd_grid / 132:.2f} blocks for each of the card's 132 SMs", flush=True)
     torch.cuda.empty_cache()
     return times
+
+
+def phase_bwd_times(seed: int, dev) -> dict:
+    """The flash backward at the video training shape (b = 8, 12 heads,
+    T = 1568, head_dim 64, bf16, dense): #5, #6 and the whole backward,
+    then one optimizer step of each video track at batch 8. Only the port's
+    entry points that every slice since the video one has, so the same
+    script times an older checkout of the package (``--bwd-times``)."""
+    from metatransformer_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, _, do = _flash_inputs(VIDEO_TRAIN_BATCH, HEADS, VT, HD, BF, False, seed, dev)
+    scale = float(HD) ** -0.5
+    with torch.no_grad():
+        o, lse = fa.flash_fwd_cuda(q, k, v, None, scale)
+        bwd = (q, k, v, None, do, lse, fa._delta(o, do), scale)
+        out = {"flash_bwd_dq": _median_ms(lambda: fa.flash_bwd_dq_cuda(*bwd)),
+               "flash_bwd_dkv": _median_ms(lambda: fa.flash_bwd_dkv_cuda(*bwd)),
+               "backward": _median_ms(lambda: fa._backward(q, k, v, None, o, lse, do, scale))}
+    del q, k, v, do, o, lse, bwd
+    torch.cuda.empty_cache()
+    batch = _video_batch()
+    for track in ("frozen", "full"):
+        trainer = _make_video_trainer(track, seed)
+        on_card = trainer._to_device(batch)
+        out[f"video_step_{track}"] = _median_ms(
+            lambda: trainer._step(trainer.trainable, trainer.frozen, on_card, None))
+        del trainer, on_card
+        torch.cuda.empty_cache()
+    print("bwd times (ms, median of %d): %s" % (TIMING_REPS, json.dumps(out)), flush=True)
+    return out
 
 
 def phase_video_times(model, seed: int, dev, profile: bool):
@@ -1546,11 +1664,17 @@ def main() -> None:
                          "one video forward at b=8, one full-track video step, the point "
                          "and segmenter forwards at their largest batch and one full-track "
                          "point step")
+    ap.add_argument("--bwd-times", action="store_true",
+                    help="only build and time the flash backward kernels and one step of "
+                         "each video track, to compare checkouts in turns; prints no result")
     args = ap.parse_args()
 
     phase_device()
     dev = torch.device("cuda", 0)
     phase_build()
+    if args.bwd_times:
+        phase_bwd_times(args.seed, dev)
+        return
     errs = phase_kernels(args.seed, dev)
     phase_autograd(args.seed, dev)
     model, serve_launches = phase_serve(args.seed, dev)
@@ -1568,6 +1692,7 @@ def main() -> None:
     del video_model
     torch.cuda.empty_cache()
     video_train_launches = phase_video_train(args.seed, dev)
+    video_remat_launches = phase_video_remat(args.seed, dev)
     mae_launches = phase_video_mae(args.seed, dev)
     phase_video_mae_time(args.seed, dev)
 
@@ -1586,6 +1711,7 @@ def main() -> None:
         **{f"train_{k}": v for k, v in train_launches.items()},
         "video_serve": video_serve_launches,
         **{f"video_train_{k}": v for k, v in video_train_launches.items()},
+        "video_remat": video_remat_launches,
         "video_mae": mae_launches,
         "point_serve": point_serve_launches,
         **{f"point_train_{k}": v for k, v in point_train_launches.items()},
@@ -1597,6 +1723,7 @@ def main() -> None:
         "train_frozen": FUSED_KERNELS, "train_full": FUSED_KERNELS,
         "video_serve": ("flash_fwd",),
         "video_train_frozen": FLASH_KERNELS, "video_train_full": FLASH_KERNELS,
+        "video_remat": FLASH_KERNELS,
         "video_mae": FLASH_KERNELS,
         "point_serve": ("fps", "attn_sublayer", "mlp_sublayer"),
         "point_train_frozen": ("fps", *FUSED_KERNELS),
@@ -1628,6 +1755,8 @@ def main() -> None:
             "library_ms": times[name].get("library_ms"),
             **({"library_composition_ms": times[name]["library_composition_ms"]}
                if "library_composition_ms" in times[name] else {}),
+            **({"port_backward_ms": times[name]["port_backward_ms"]}
+               if "port_backward_ms" in times[name] else {}),
         }
         for name, (replaces, source) in KERNELS.items()
     ]}), flush=True)

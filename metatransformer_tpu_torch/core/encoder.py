@@ -42,8 +42,8 @@ _MATMUL_LEAVES = (
 # Attention paths whose kernels or modules are not ported yet, and where
 # ROADMAP.md queues them.
 _NOT_PORTED = {
-    "ring": "ROADMAP.md queue 1, item 10 (parallel/ring_attention.py)",
-    "performer": "ROADMAP.md queue 1, item 7 (ops/performer.py)",
+    "ring": "ROADMAP.md queue 1, item 8 (parallel/ring_attention.py)",
+    "performer": "ROADMAP.md queue 1, item 3 (ops/performer.py)",
 }
 
 
@@ -88,6 +88,13 @@ class EncoderConfig:
     # blocks). "save": keep the block's intermediates for the backward; the
     # fused sublayers recompute theirs, so "save" resolves "fused" to "xla".
     remat: Any = False
+    # The reference's options of the paths not ported yet, kept so that a
+    # config carried over with them constructs: FAVOR+ features (0 -> 2 *
+    # head_dim) and their seed for attn_impl="performer", the mesh axis the
+    # tokens are sharded over for attn_impl="ring". Both paths raise.
+    performer_features: int = 0
+    performer_seed: int = 0
+    ring_axis: str = "seq"
 
     @property
     def head_dim(self) -> int:

@@ -5,8 +5,9 @@ into its own shared library with a plain C interface, all compilers started
 together, at first use, and loaded with ``ctypes``. A library lands in
 ``metatransformer_tpu_torch/_build/`` under a name keyed by a hash of its
 source, the shared header and the flags, so a changed source builds anew
-and an unchanged one is reused. There is no fallback: a missing ``nvcc`` or
-a failed build raises.
+and an unchanged one is reused; beside it, the assembler's report of each
+kernel's registers, shared memory and spills (``-Xptxas -v``). There is no
+fallback: a missing ``nvcc`` or a failed build raises.
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ _HEADERS = (_CSRC / "common.cuh",)
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _vp, _int, _float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -52,8 +53,13 @@ _SOURCES = {
         # q, k, v, bias, o, lse, B, T, H, hd, q/k/v strides (b, t, h), scale,
         # is_fp32, stream
         "mt_flash_fwd": [_vp] * 6 + [_int] * 4 + [_ll] * 3 + [_float, _int, _vp],
-        # q, k, v, bias, d_o, lse, delta, dq, B, T, H, hd, q/k/v strides,
-        # dq strides, scale, is_fp32, stream
+        # the fp32 backward; arguments as mt_flash_bwd_dq / mt_flash_bwd_dkv
+        "mt_flash_bwd_dq_f32": [_vp] * 8 + [_int] * 4 + [_ll] * 6 + [_float, _int, _vp],
+        "mt_flash_bwd_dkv_f32": [_vp] * 9 + [_int] * 4 + [_ll] * 6 + [_float, _int, _vp],
+    },
+    _CSRC / "flash_attention_bwd.cu": {
+        # the bf16 backward on wgmma: q, k, v, bias, d_o, lse, delta, dq, B, T,
+        # H, hd, q/k/v strides, dq strides, scale, is_fp32 (0), stream
         "mt_flash_bwd_dq": [_vp] * 8 + [_int] * 4 + [_ll] * 6 + [_float, _int, _vp],
         # as mt_flash_bwd_dq with the outputs dk, dv (shared strides)
         "mt_flash_bwd_dkv": [_vp] * 9 + [_int] * 4 + [_ll] * 6 + [_float, _int, _vp],
@@ -115,10 +121,23 @@ def build() -> Dict[Path, Path]:
             os.unlink(tmp)
             errors.append(f"nvcc failed ({proc.returncode}) on {src.name}:\n{out}\n{err}")
         else:
+            _report_path(so).write_text(err)
             os.replace(tmp, so)  # atomic: a concurrent loader sees all or nothing
     if errors:
         raise RuntimeError("\n".join(errors))
     return paths
+
+
+def _report_path(so: Path) -> Path:
+    return so.with_suffix(".ptxas.txt")
+
+
+def ptxas_report(source: str) -> str:
+    """What the assembler said of each kernel of ``csrc/<source>`` when its
+    library was built (registers, shared memory, spills): the ``-Xptxas -v``
+    lines."""
+    path = _report_path(library_paths()[_CSRC / source])
+    return path.read_text() if path.exists() else ""
 
 
 @functools.lru_cache(maxsize=1)

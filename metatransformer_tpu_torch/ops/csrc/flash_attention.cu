@@ -1,15 +1,16 @@
-// Flash attention for long sequences on Hopper (sm_90a): forward and the
-// two backward kernels, for bf16 and fp32 inputs.
+// Flash attention for long sequences on Hopper (sm_90a): the forward for
+// bf16 and fp32 inputs, and the two backward kernels for fp32 inputs (the
+// bf16 backward is flash_attention_bwd.cu, on wgmma).
 //
 // Three public entry points with a plain C interface, bound with ctypes by
 // metatransformer_tpu_torch/ops/flash_attention.py. Each is one launch and
 // replaces one Pallas kernel of metatransformer_tpu/ops/flash_attention.py:
 //
-//   mt_flash_fwd      `_fwd_kernel` (:70)      o = softmax(q k^T scale + bias) v
-//                                             and lse = m + log l per row
-//   mt_flash_bwd_dq   `_bwd_dq_kernel` (:137)  dq = scale * sum_k ds k
-//   mt_flash_bwd_dkv  `_bwd_dkv_kernel` (:176) dk = scale * sum_q ds^T q,
-//                                             dv = sum_q p^T dO
+//   mt_flash_fwd          `_fwd_kernel` (:70)      o = softmax(q k^T scale + bias) v
+//                                                 and lse = m + log l per row
+//   mt_flash_bwd_dq_f32   `_bwd_dq_kernel` (:137)  dq = scale * sum_k ds k
+//   mt_flash_bwd_dkv_f32  `_bwd_dkv_kernel` (:176) dk = scale * sum_q ds^T q,
+//                                                 dv = sum_q p^T dO
 //   with p = exp(s - lse), dp = dO v^T, ds = p (dp - delta).
 //
 // Numerics follow the Pallas kernels' cast points. Logits are (q . k)
@@ -21,7 +22,8 @@
 // to dO's type before the products, scales dq and dk after the sum and
 // leaves dv unscaled. The arithmetic follows the element type: bf16 inputs
 // go through the tensor cores (wmma m16n16k16, fp32 accumulation), fp32
-// inputs through plain fp32 FMAs (no TF32), which is slow and exact.
+// inputs through plain fp32 FMAs (no TF32), which is slow and exact. The
+// backward templates below are instantiated for fp32 only.
 //
 // What bounds it: at the video path's shapes (T = 1568, head_dim 64, B*H =
 // 96, bf16) the forward does 60 GFLOP over 77 MB, so tensor-core operations
@@ -196,18 +198,6 @@ struct RowAcc<bf16, HD, true> {
 #pragma unroll
     for (int n = 0; n < HD / 16; ++n)
       wmma::store_matrix_sync(stage + n * 16, f[n], C::O_LD, wmma::mem_row_major);
-    __syncwarp();
-  }
-  // Row r of the accumulators, times mul, to dst (this lane's half row).
-  __device__ __forceinline__ void store(float* stage, bf16* dst, bool valid, float mul) {
-    const int lane = threadIdx.x & 31, r = lane >> 1, c_lo = (lane & 1) * (HD / 2);
-    dump(stage);
-    if (valid) {
-      float vals[HD / 2];
-#pragma unroll
-      for (int i = 0; i < HD / 2; ++i) vals[i] = stage[r * C::O_LD + c_lo + i];
-      store_chunks<bf16, HD / 2>(dst, vals, mul);
-    }
     __syncwarp();
   }
 };
@@ -541,6 +531,8 @@ int launch_flash(int which, const FaArgs& a) {
     if (err != cudaSuccess) return static_cast<int>(err);
     flash_fwd<T, HD><<<grid, FA_THREADS, C::FWD_BYTES, a.stream>>>(
         q, k, v, a.bias, static_cast<T*>(a.o), a.lse_out, a.T, a.sb, a.st, a.sh, a.scale);
+  } else if constexpr (C::TENSOR) {
+    return static_cast<int>(cudaErrorInvalidValue);  // bf16: flash_attention_bwd.cu
   } else if (which == FA_DQ) {
     err = cudaFuncSetAttribute(flash_bwd_dq<T, HD>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, C::DQ_BYTES);
@@ -596,9 +588,10 @@ int mt_flash_fwd(const void* q, const void* k, const void* v, const void* bias, 
   return launch_flash_any(FA_FWD, hd, is_fp32, a);
 }
 
+// fp32 only (is_fp32 = 1; bf16: mt_flash_bwd_dq of flash_attention_bwd.cu).
 // d_o: contiguous [B, T, H, hd]; lse, delta: [B, H, T] fp32. Output dq:
 // [B, T, H, hd] with element strides (gb, gt, gh, 1).
-int mt_flash_bwd_dq(const void* q, const void* k, const void* v, const void* bias,
+int mt_flash_bwd_dq_f32(const void* q, const void* k, const void* v, const void* bias,
                     const void* d_o, const void* lse, const void* delta, void* dq, int B,
                     int T, int H, int hd, long long sb, long long st, long long sh,
                     long long gb, long long gt, long long gh, float scale, int is_fp32,
@@ -613,8 +606,8 @@ int mt_flash_bwd_dq(const void* q, const void* k, const void* v, const void* bia
   return launch_flash_any(FA_DQ, hd, is_fp32, a);
 }
 
-// As mt_flash_bwd_dq; outputs dk and dv share the strides (gb, gt, gh, 1).
-int mt_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* bias,
+// As mt_flash_bwd_dq_f32; outputs dk and dv share the strides (gb, gt, gh, 1).
+int mt_flash_bwd_dkv_f32(const void* q, const void* k, const void* v, const void* bias,
                      const void* d_o, const void* lse, const void* delta, void* dk, void* dv,
                      int B, int T, int H, int hd, long long sb, long long st, long long sh,
                      long long gb, long long gt, long long gh, float scale, int is_fp32,

@@ -11,6 +11,10 @@ logits never reach device memory, forward or backward:
 * :func:`flash_bwd_dq_cuda` replaces ``_bwd_dq_kernel`` (``:137``);
 * :func:`flash_bwd_dkv_cuda` replaces ``_bwd_dkv_kernel`` (``:176``).
 
+The backward kernels take bf16 inputs to ``csrc/flash_attention_bwd.cu``
+(``wgmma``, P and dS kept in registers) and fp32 inputs to the FMA kernels
+of ``csrc/flash_attention.cu``; each call has exactly one route, by dtype.
+
 Layout: q, k, v are ``[B, T, H, d]`` (the encoder's layout) and may be
 strided views of one ``[B, T, 3, H, d]`` projection; the kernels index them
 by strides, so nothing is padded, transposed or copied. A ragged batch
@@ -20,7 +24,7 @@ sample (0 / ``NEG_INF``) shared by its heads. ``lse`` and ``delta`` are
 
 Dispatch depends only on where ``q`` lies. A CPU tensor runs the plain
 versions (:func:`flash_attention_plain`, :func:`flash_attention_bwd_plain`);
-a CUDA tensor launches the kernels of ``csrc/flash_attention.cu`` or raises.
+a CUDA tensor launches the kernels of ``csrc/`` or raises.
 There is no fallback between the two. bf16 inputs run on the tensor cores,
 fp32 inputs on plain fp32 FMAs. Each CUDA wrapper counts its launches in a
 plain int attribute (``flash_fwd_cuda.launches``).
@@ -224,8 +228,9 @@ def flash_bwd_dq_cuda(q, k, v, bias, do, lse, delta, scale, out=None):
     _check_bwd(q, k, v, bias, do, lse, delta, [("dq", dq)])
     b, t, h, d = q.shape
     lib = _build.library()
+    fn = lib.mt_flash_bwd_dq if q.dtype == torch.bfloat16 else lib.mt_flash_bwd_dq_f32
     with torch.cuda.device(q.device):
-        rc = lib.mt_flash_bwd_dq(
+        rc = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, t, h, d,
             *q.stride()[:3], *dq.stride()[:3], ctypes.c_float(scale),
@@ -250,8 +255,9 @@ def flash_bwd_dkv_cuda(q, k, v, bias, do, lse, delta, scale, out=None):
     _check_bwd(q, k, v, bias, do, lse, delta, [("dk", dk), ("dv", dv)])
     b, t, h, d = q.shape
     lib = _build.library()
+    fn = lib.mt_flash_bwd_dkv if q.dtype == torch.bfloat16 else lib.mt_flash_bwd_dkv_f32
     with torch.cuda.device(q.device):
-        rc = lib.mt_flash_bwd_dkv(
+        rc = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, t, h, d,
             *q.stride()[:3], *dk.stride()[:3], ctypes.c_float(scale),

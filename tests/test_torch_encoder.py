@@ -151,8 +151,21 @@ def test_unported_attention_paths_raise(impl):
         want = enc.encode(params, x, dataclasses.replace(cfg, attn_impl="xla"))
         torch.testing.assert_close(enc.encode(params, x, cfg), want, atol=1e-5, rtol=1e-5)
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    item = {"ring": "item 8", "performer": "item 3"}[impl]
+    with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1, {item}"):
         enc.encode(params, x, cfg)
+
+
+def test_config_has_every_reference_field_with_its_default():
+    """Every field of the JAX EncoderConfig exists in the port's with an
+    equal default, so a config carried over from the reference constructs."""
+    want = {f.name: f.default for f in dataclasses.fields(jenc.EncoderConfig)}
+    got = {f.name: f.default for f in dataclasses.fields(enc.EncoderConfig)}
+    assert set(want) <= set(got)
+    assert {name: got[name] for name in want} == want
+    cfg = enc.EncoderConfig(dim=64, depth=1, num_heads=2, attn_impl="performer",
+                            performer_features=16, performer_seed=3, ring_axis="tokens")
+    assert (cfg.performer_features, cfg.performer_seed, cfg.ring_axis) == (16, 3, "tokens")
 
 
 def test_auto_long_sequence_raises_instead_of_falling_back(monkeypatch):

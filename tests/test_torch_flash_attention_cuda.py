@@ -62,6 +62,19 @@ CASES = [
     (2, 513, 12, 64, torch.bfloat16, False),  # 8 * 64 + 1: the last tile holds one row
     (2, 513, 12, 64, torch.bfloat16, True),
     (1, 40, 2, 64, torch.bfloat16, False),
+    # the bf16 backward's 128-row blocks and 64-row streamed tiles: one row
+    # short of, exactly at and one past a block, and two blocks and a row
+    (2, 127, 2, 64, torch.bfloat16, False),
+    (2, 127, 2, 64, torch.bfloat16, True),
+    (2, 128, 2, 64, torch.bfloat16, False),
+    (2, 128, 2, 64, torch.bfloat16, True),
+    (2, 129, 2, 64, torch.bfloat16, False),
+    (2, 129, 2, 64, torch.bfloat16, True),
+    (2, 257, 2, 64, torch.bfloat16, False),
+    (2, 257, 2, 64, torch.bfloat16, True),
+    (2, 513, 2, 32, torch.bfloat16, True),  # the segmenter's T at the other head dims
+    (2, 513, 2, 128, torch.bfloat16, True),
+    (3, 1568, 2, 64, torch.bfloat16, True),  # sample 1 fully masked, sample 2 dense
     (2, 1568, 2, 64, torch.float32, True),
     (2, 300, 2, 32, torch.float32, False),
     (2, 130, 2, 128, torch.float32, True),
@@ -93,7 +106,9 @@ def test_flash_kernels_match_plain(cuda_device, b, t, h, d, dtype, masked):
     tol = REL_TOL[dtype]
     assert o.dtype == dtype and lse.dtype == torch.float32
     assert _rel_err(o, want_o) <= tol
-    live = slice(0, 1) if masked and b > 1 else slice(None)  # lse of a fully masked row is -1e30
+    # samples with a kept key: sample 1 of a masked batch is fully masked
+    # (its lse is -1e30 and the reference spreads p over padded keys)
+    live = [i for i in range(b) if not (masked and i == 1)]
     torch.testing.assert_close(lse[live], want_lse[live], rtol=LSE_TOL, atol=LSE_TOL)
     # the backward from the kernel's own o and lse, as the Function runs it
     want_dq = fa.flash_bwd_dq_plain(f(q), f(k), f(v), bias, f(do), lse, delta, scale)
