@@ -6,7 +6,8 @@ trained, segmenter served, masked point ViT trained) on one NVIDIA GPU
 through the hand-written kernels.
 
     python3 chip_smoke.py [--seed N] [--profile]
-    python3 chip_smoke.py --bwd-times   # only the flash backward and video-step times
+    python3 chip_smoke.py --bwd-times      # only the flash backward and video-step times
+    python3 chip_smoke.py --kernel-times   # only #3, #4 and the steps and forward they carry
 
 Phases (any failed check raises, so the process exits non-zero):
 
@@ -14,17 +15,19 @@ Phases (any failed check raises, so the process exits non-zero):
    off for fp32 matmuls and convolutions;
 2. build the kernels from ``metatransformer_tpu_torch/ops/csrc``;
 3. hold each kernel against its plain PyTorch version, computed in fp32
-   from the same bf16 inputs, at the shapes of the image path (T = 197) and
-   of the point classifier (T = 257); the backward kernel is launched twice
-   and must repeat bit for bit;
+   from the same bf16 inputs, at the shapes of the image path (T = 197), of
+   the point classifier (T = 257) and of ViT-L14 (D = 1024, 16 heads of 64,
+   T = 257); the backward kernel is launched twice and must repeat bit for
+   bit;
 4. hold both autograd Functions (attention and MLP sublayer) against
    autograd through the plain versions in fp32;
 5. serve a few uint8 image batches (b = 1, 8, 128) through a full-width
    ViT-B16 classifier (seeded random weights, 1000 classes), count the
    kernel launches of that run, and hold the logits against the same model
    run with the plain versions on the card;
-6. time each kernel, its plain version and the library composition of the
-   same function, and the whole forward;
+6. time each kernel (a loop of launches between two CUDA events, over the
+   count; the median of one timed call beside it), its plain version and
+   the library composition of the same function, and the whole forward;
 7. train: for each track build the full-width model through
    ``image_classifier.init`` and ``Trainer`` (no device named: both land on
    the card), take 6 AdamW steps on one fixed batch of 128, count the kernel
@@ -186,13 +189,18 @@ FPS_CASES = [(1, 1024, 256), (64, 1024, 256), (8, 2048, 512), (32, 1024, 64),
              (2, 16384, 4096)]
 FPS_MAIN_CASE = (64, 1024, 256)  # the classifier's b = 64 request
 
+# ViT-L14 (enc.LARGE): D = 1024, 16 heads of 64, MLP 4096, T = 257 at patch
+# 14 on 224^2; its fused sublayers are held at b = 8.
+LARGE_D, LARGE_HEADS, LARGE_MLP, LARGE_T, LARGE_BATCH = 1024, 16, 4096, 257, 8
+
 CSRC = "metatransformer_tpu_torch/ops/csrc/"
 KERNELS = {
     "attn_sublayer": ("metatransformer_tpu/ops/fused_block.py:82", CSRC + "fused_block.cu"),
     "mlp_sublayer": ("metatransformer_tpu/ops/fused_block.py:562", CSRC + "fused_block.cu"),
     "attn_sublayer_bwd": (
         "metatransformer_tpu/ops/fused_block.py:310", CSRC + "fused_block_bwd.cu"),
-    "flash_fwd": ("metatransformer_tpu/ops/flash_attention.py:70", CSRC + "flash_attention.cu"),
+    "flash_fwd": (
+        "metatransformer_tpu/ops/flash_attention.py:70", CSRC + "flash_attention_fwd.cu"),
     "flash_bwd_dq": (
         "metatransformer_tpu/ops/flash_attention.py:137", CSRC + "flash_attention_bwd.cu"),
     "flash_bwd_dkv": (
@@ -224,18 +232,26 @@ def phase_build():
     _build.library()
     names = ", ".join(p.name for p in _build.library_paths().values())
     print(f"build: {names} in {time.perf_counter() - t0:.2f} s", flush=True)
-    if hasattr(_build, "ptxas_report"):  # registers, shared memory, spills of the wgmma kernels
+    # registers, shared memory, spills and warnings of the wgmma kernels
+    import re
+
+    names = {p.name for p in _build._SOURCES}
+    wanted = re.compile(r"(flash_fwd_wgmma|flash_bwd_dq_wgmma|flash_bwd_dkv_wgmma|attn_bwd_q|"
+                        r"attn_bwd_kv|gemm_sm90)I(\w+?)EEv")
+    for source in ("flash_attention_fwd.cu", "flash_attention_bwd.cu", "fused_block_bwd.cu"):
+        if source not in names:  # an older checkout
+            continue
         kernel = None
-        for line in _build.ptxas_report("flash_attention_bwd.cu").splitlines():
+        for line in _build.ptxas_report(source).splitlines():
             if "Compiling entry function" in line:
-                name = line.split("'")[1]
+                found = wanted.search(line)
                 kernel = None
-                if "wgmma" in name:  # ...flash_bwd_dq_wgmmaILi64EEEv...: the head_dim
-                    hd = name.split("wgmmaILi")[1].split("E")[0]
-                    kernel = f"{name[name.index('flash_bwd'):name.index('ILi')]} head_dim {hd}"
+                if found:  # template arguments: Li64 -> 64, Li0ELb1 -> 0,1
+                    args = ",".join(re.findall(r"L[ib](\d+)", found.group(2)))
+                    kernel = f"{found.group(1)}<{args}>"
             elif line.startswith("ptxas") and "warning" in line or (
                     kernel and ("spill" in line or "Used" in line)):
-                print(f"ptxas -v {kernel}: {line.strip()}", flush=True)
+                print(f"ptxas -v {source} {kernel}: {line.strip()}", flush=True)
 
 
 # --------------------------------------------------------------------------
@@ -243,36 +259,37 @@ def phase_build():
 # --------------------------------------------------------------------------
 
 
-def _sublayer_inputs(kind: str, b: int, seed: int, dev, t: int = T):
-    """Seeded bf16 inputs at unit scale: x ~ N(0, 1) of ``t`` tokens, weights
-    scaled by fan_in**-0.5 so every product stays O(1)."""
+def _sublayer_inputs(kind: str, b: int, seed: int, dev, t: int = T, d: int = D,
+                     mlp: int = MLP):
+    """Seeded bf16 inputs at unit scale: x ~ N(0, 1) of ``t`` tokens of width
+    ``d``, weights scaled by fan_in**-0.5 so every product stays O(1)."""
     g = torch.Generator().manual_seed(seed)
     randn = lambda *s: torch.randn(*s, generator=g)
-    hidden, out_in = (MLP, MLP) if kind == "mlp_sublayer" else (3 * D, D)
+    hidden, out_in = (mlp, mlp) if kind == "mlp_sublayer" else (3 * d, d)
     bf = torch.bfloat16
     return (
-        randn(b, t, D).to(dev, bf),
-        (1.0 + 0.1 * randn(D)).to(dev),
-        (0.1 * randn(D)).to(dev),
-        (randn(D, hidden) * D**-0.5).to(dev, bf),
+        randn(b, t, d).to(dev, bf),
+        (1.0 + 0.1 * randn(d)).to(dev),
+        (0.1 * randn(d)).to(dev),
+        (randn(d, hidden) * d**-0.5).to(dev, bf),
         (0.1 * randn(hidden)).to(dev, bf),
-        (randn(out_in, D) * out_in**-0.5).to(dev, bf),
-        (0.1 * randn(D)).to(dev, bf),
+        (randn(out_in, d) * out_in**-0.5).to(dev, bf),
+        (0.1 * randn(d)).to(dev, bf),
     )
 
 
-def _bwd_inputs(b: int, seed: int, dev, t: int = T):
+def _bwd_inputs(b: int, seed: int, dev, t: int = T, d: int = D):
     """The backward kernel's arguments: the attention inputs without proj_b,
     and a unit-scale cotangent g after x."""
-    x, lns, lnb, wqkv, bqkv, wproj, _ = _sublayer_inputs("attn_sublayer", b, seed, dev, t)
-    g = torch.randn(b, t, D, generator=torch.Generator().manual_seed(seed + 7))
+    x, lns, lnb, wqkv, bqkv, wproj, _ = _sublayer_inputs("attn_sublayer", b, seed, dev, t, d)
+    g = torch.randn(b, t, d, generator=torch.Generator().manual_seed(seed + 7))
     return (x, g.to(dev, torch.bfloat16), lns, lnb, wqkv, bqkv, wproj)
 
 
-def _pair(kind: str):
+def _pair(kind: str, heads: int = HEADS):
     from metatransformer_tpu_torch.ops import fused_block as fb
 
-    kw = dict(num_heads=HEADS, ln_eps=LN_EPS)
+    kw = dict(num_heads=heads, ln_eps=LN_EPS)
     if kind == "attn_sublayer":
         return (
             lambda a, bias=None: fb.attn_sublayer_cuda(*a, bias, **kw),
@@ -310,42 +327,57 @@ def phase_kernels(seed: int, dev) -> dict:
         worst[kind] = 0.0
         for b, t, bias in cases:
             args = _sublayer_inputs(kind, b, seed + b + t, dev, t)
-            with torch.no_grad():
-                got = kernel(args, bias).float()
-                torch.cuda.synchronize()
-                want = plain([a.float() for a in args], bias)
-            if not torch.isfinite(got).all():
-                raise AssertionError(f"{kind} b={b} T={t}: non-finite kernel output")
-            max_abs = (got - want).abs().max().item()
-            tag = "masked" if bias is not None else "dense"
-            print(f"{kind} b={b} T={t} {tag}: max_abs_err {max_abs:.6g} vs the fp32 plain "
-                  f"version (tol {KERNEL_TOL}, max |x| {want.abs().max().item():.4g})",
-                  flush=True)
-            if max_abs > KERNEL_TOL:
-                raise AssertionError(f"{kind} b={b} T={t} {tag}: kernel disagrees with plain")
-            worst[kind] = max(worst[kind], max_abs)
-    worst["attn_sublayer_bwd"] = phase_bwd_kernel(seed, dev)
+            worst[kind] = max(worst[kind], _check_sublayer(kind, kernel, plain, args, bias))
+        # ViT-L14's widths
+        kernel, plain = _pair(kind, LARGE_HEADS)
+        args = _sublayer_inputs(kind, LARGE_BATCH, seed + 11, dev, LARGE_T, LARGE_D, LARGE_MLP)
+        worst[kind] = max(worst[kind], _check_sublayer(kind, kernel, plain, args, None, "L14 "))
+    worst["attn_sublayer_bwd"] = max(
+        phase_bwd_kernel(seed, dev),
+        phase_bwd_kernel(seed, dev, [(LARGE_BATCH, LARGE_T, None)], LARGE_D, LARGE_HEADS, "L14 "))
     return worst
 
 
-def phase_bwd_kernel(seed: int, dev) -> float:
+def _check_sublayer(kind, kernel, plain, args, bias, what: str = "") -> float:
+    """One forward kernel against its fp32 plain version; the max abs error."""
+    b, t, d = args[0].shape
+    with torch.no_grad():
+        got = kernel(args, bias).float()
+        torch.cuda.synchronize()
+        want = plain([a.float() for a in args], bias)
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{what}{kind} b={b} T={t}: non-finite kernel output")
+    max_abs = (got - want).abs().max().item()
+    tag = "masked" if bias is not None else "dense"
+    print(f"{what}{kind} b={b} T={t} D={d} {tag}: max_abs_err {max_abs:.6g} vs the fp32 "
+          f"plain version (tol {KERNEL_TOL}, max |x| {want.abs().max().item():.4g})",
+          flush=True)
+    if max_abs > KERNEL_TOL:
+        raise AssertionError(f"{what}{kind} b={b} T={t} {tag}: kernel disagrees with plain")
+    return max_abs
+
+
+def phase_bwd_kernel(seed: int, dev, cases=None, d: int = D, heads: int = HEADS,
+                     what: str = "") -> float:
     """All six outputs of the backward kernel vs its fp32 plain version;
     two launches must agree bit for bit (the dgamma / dbeta reduction has a
     fixed order and no atomics). Returns the worst absolute error."""
-    kernel, plain = _pair("attn_sublayer_bwd")
+    kernel, plain = _pair("attn_sublayer_bwd", heads)
     names = ("dx", "dqkv", "xn", "o", "dlns", "dlnb")
     worst_abs = 0.0
-    cases = [(b, T, None) for b in KERNEL_BATCHES] + [(8, T, _ragged_bias(dev))]
-    # the point classifier's training batch, and its largest request's shape
-    cases += [(POINT_TRAIN_BATCH, POINT_T, None), (POINT_SERVE_BATCHES[-1], POINT_T, None)]
+    if cases is None:
+        cases = [(b, T, None) for b in KERNEL_BATCHES] + [(8, T, _ragged_bias(dev))]
+        # the point classifier's training batch, and its largest request's shape
+        cases += [(POINT_TRAIN_BATCH, POINT_T, None), (POINT_SERVE_BATCHES[-1], POINT_T, None)]
     for b, t, bias in cases:
-        args = _bwd_inputs(b, seed + b + t, dev, t)
+        args = _bwd_inputs(b, seed + b + t, dev, t, d)
         with torch.no_grad():
             got = kernel(args, bias)
             again = kernel(args, bias)
             torch.cuda.synchronize()
             want = plain([a.float() for a in args], bias)
-        tag = "masked" if bias is not None else "dense"
+        tag = ("masked" if bias is not None else "dense") + f" D={d}"
+        tag = what + tag
         parts = []
         for name, g, g2, w in zip(names, got, again, want):
             g = g.float()
@@ -657,7 +689,30 @@ def phase_train(seed: int, dev) -> dict:
 # --------------------------------------------------------------------------
 
 
+def _loop_ms(fn, launches: int = TIMING_REPS, loops: int = 5) -> float:
+    """Time of one call of ``fn`` in a stream of calls: CUDA events around a
+    loop of ``launches`` calls on inputs made before it, over the count; the
+    median of ``loops`` such loops after a warm-up. The kernel rows' time: a
+    launch's host work overlaps the device work of the launch before it."""
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(loops):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(launches):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / launches)
+    return statistics.median(times)
+
+
 def _median_ms(fn, reps: int = TIMING_REPS) -> float:
+    """Median of ``reps`` CUDA-event timings of one call each: the step and
+    forward times, and beside each kernel row the earlier single-call
+    figure, whose event pair also holds the wrapper's host work."""
     for _ in range(min(3, reps)):
         fn()
     times = []
@@ -672,12 +727,13 @@ def _median_ms(fn, reps: int = TIMING_REPS) -> float:
     return statistics.median(times)
 
 
-def _library_attn(x, lns, lnb, wqkv, bqkv, wproj, bproj):
+def _library_attn(x, lns, lnb, wqkv, bqkv, wproj, bproj, heads: int = HEADS):
     """The attention sublayer as a composition of PyTorch's own bf16 calls.
     A yardstick only: nothing in the port calls it."""
     b, t, d = x.shape
     xn = F.layer_norm(x, (d,), lns.to(x.dtype), lnb.to(x.dtype), LN_EPS)
-    q, k, v = F.linear(xn, wqkv.t(), bqkv).reshape(b, t, 3, HEADS, HD).permute(2, 0, 3, 1, 4)
+    q, k, v = F.linear(xn, wqkv.t(), bqkv).reshape(
+        b, t, 3, heads, d // heads).permute(2, 0, 3, 1, 4)
     o = F.scaled_dot_product_attention(q, k, v).transpose(1, 2).reshape(b, t, d)
     return x + F.linear(o, wproj.t(), bproj)
 
@@ -687,12 +743,13 @@ def _library_mlp(x, lns, lnb, w1, b1, w2, b2):
     return x + F.linear(F.gelu(F.linear(xn, w1.t(), b1)), w2.t(), b2)
 
 
-def _bounds(b: int) -> dict:
-    """The least time the card could take for each kernel's work at batch b:
-    the larger of operations / peak bf16 rate and bytes / peak memory rate,
-    each input read once and each output written once."""
-    m = b * T
-    attn_products = 2 * b * HEADS * T * T * HD  # one [T, T, hd] product, all heads
+def _bounds(b: int, t: int = T, d: int = D, mlp: int = MLP) -> dict:
+    """The least time the card could take for each kernel's work at batch b
+    (T tokens, width d): the larger of operations / peak bf16 rate and
+    bytes / peak memory rate, each input read once and each output written
+    once."""
+    m, D, MLP = b * t, d, mlp
+    attn_products = 2 * b * t * t * D  # one [T, T, hd] product, all heads
     act = 2 * m * D  # one bf16 [B, T, D] tensor, bytes
     ops = {
         "attn_sublayer": 2 * m * D * 3 * D + 2 * m * D * D + 2 * attn_products,
@@ -717,42 +774,60 @@ def _bounds(b: int) -> dict:
     return out
 
 
+def _fused_kernel_times(kind, b, seed, dev, t=T, d=D, heads=HEADS, mlp=MLP,
+                        plain_too=True) -> dict:
+    """One fused kernel at batch b: its time by the launch loop and by the
+    single-call median, its plain version, the library composition of the
+    same function (by the launch loop) and the bound."""
+    kernel, plain = _pair(kind, heads)
+    if kind == "attn_sublayer_bwd":
+        args = _bwd_inputs(b, seed, dev, t, d)
+        x, g, lns, lnb, wqkv, bqkv, wproj = args
+        leaves = [a.clone().requires_grad_(True)
+                  for a in (x, lns, lnb, wqkv, bqkv, wproj, torch.zeros_like(lnb).bfloat16())]
+        out = _library_attn(*leaves, heads=heads)  # untimed forward; its graph is kept
+        library = lambda: torch.autograd.grad(out, leaves, g, retain_graph=True)
+    else:
+        args = _sublayer_inputs(kind, b, seed, dev, t, d, mlp)
+        composition = (lambda *a: _library_attn(*a, heads=heads)) if kind == "attn_sublayer" \
+            else _library_mlp
+        library = lambda: composition(*args)
+    with torch.no_grad():
+        ms, single = _loop_ms(lambda: kernel(args)), _median_ms(lambda: kernel(args))
+        plain_ms = _median_ms(lambda: plain(args)) if plain_too else None
+    with torch.set_grad_enabled(kind == "attn_sublayer_bwd"):
+        lib_ms = _loop_ms(library)
+    bound = _bounds(b, t, d, mlp)[kind]
+    return {"ms": ms, "ms_single_call": single, "plain_ms": plain_ms,
+            "library_composition_ms": lib_ms, **bound}
+
+
 def phase_times(model, seed: int, dev) -> dict:
     times = {}
     b = 128
-    bounds = _bounds(b)
     for kind in FUSED_KERNELS:
-        kernel, plain = _pair(kind)
-        if kind == "attn_sublayer_bwd":
-            args = _bwd_inputs(b, seed, dev)
-            x, g, lns, lnb, wqkv, bqkv, wproj = args
-            leaves = [a.clone().requires_grad_(True)
-                      for a in (x, lns, lnb, wqkv, bqkv, wproj, torch.zeros_like(lnb).bfloat16())]
-            out = _library_attn(*leaves)  # untimed forward; its graph is kept
-            library = lambda: torch.autograd.grad(out, leaves, g, retain_graph=True)
-            what = "backward of the composition (dx and 6 parameter gradients)"
-        else:
-            args = _sublayer_inputs(kind, b, seed, dev)
-            composition = _library_attn if kind == "attn_sublayer" else _library_mlp
-            library = lambda: composition(*args)
-            what = "composition"
-        with torch.no_grad():
-            ms, plain_ms = _median_ms(lambda: kernel(args)), _median_ms(lambda: plain(args))
-        if kind == "attn_sublayer_bwd":
-            lib_ms = _median_ms(library)
-            del out, leaves
-        else:
-            with torch.no_grad():
-                lib_ms = _median_ms(library)
-        bound = bounds[kind]
-        times[kind] = {"ms": ms, "plain_ms": plain_ms, "library_composition_ms": lib_ms,
-                       **{k: bound[k] for k in ("bound_ms", "bound_by")}}
-        print(f"{kind} b={b}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library {what} "
-              f"(layer_norm, linear, scaled_dot_product_attention, gelu in bf16; no single "
-              f"PyTorch call computes the sublayer) {lib_ms:.4f} ms, bound "
-              f"{bound['bound_ms']:.4f} ms by {bound['bound_by']} ({bound['gflop']:.2f} GFLOP, "
-              f"{bound['mbytes']:.1f} MB; {100 * bound['bound_ms'] / ms:.1f}% of the bound's "
-              f"rate) (median of {TIMING_REPS})", flush=True)
+        row = _fused_kernel_times(kind, b, seed, dev)
+        times[kind] = {k: row[k] for k in ("ms", "ms_single_call", "plain_ms",
+                                           "library_composition_ms", "bound_ms", "bound_by")}
+        what = ("backward of the composition (dx and 6 parameter gradients)"
+                if kind == "attn_sublayer_bwd" else "composition")
+        print(f"{kind} b={b}: kernel {row['ms']:.4f} ms by a loop of {TIMING_REPS} launches "
+              f"(one timed call: {row['ms_single_call']:.4f} ms), plain {row['plain_ms']:.4f} "
+              f"ms, library {what} (layer_norm, linear, scaled_dot_product_attention, gelu in "
+              f"bf16; no single PyTorch call computes the sublayer) "
+              f"{row['library_composition_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms by "
+              f"{row['bound_by']} ({row['gflop']:.2f} GFLOP, {row['mbytes']:.1f} MB; "
+              f"{100 * row['bound_ms'] / row['ms']:.1f}% of the bound's rate)", flush=True)
+    # ViT-L14's widths: the backward kernel at its bound
+    row = _fused_kernel_times("attn_sublayer_bwd", LARGE_BATCH, seed, dev, LARGE_T, LARGE_D,
+                              LARGE_HEADS, LARGE_MLP)
+    print(f"L14 attn_sublayer_bwd b={LARGE_BATCH} T={LARGE_T} D={LARGE_D} H={LARGE_HEADS}: "
+          f"kernel {row['ms']:.4f} ms by a loop of {TIMING_REPS} launches (one timed call: "
+          f"{row['ms_single_call']:.4f} ms), plain {row['plain_ms']:.4f} ms, library backward "
+          f"of the composition {row['library_composition_ms']:.4f} ms, bound "
+          f"{row['bound_ms']:.4f} ms by {row['bound_by']} ({row['gflop']:.2f} GFLOP, "
+          f"{row['mbytes']:.1f} MB; {100 * row['bound_ms'] / row['ms']:.1f}% of the bound's rate)",
+          flush=True)
     g = torch.Generator().manual_seed(seed + 2)
     with torch.no_grad():
         for b in (128, 1):
@@ -1214,21 +1289,24 @@ def phase_flash_times(seed: int, dev) -> dict:
             o, lse = fa.flash_fwd_cuda(q, k, v, None, scale)
             delta = fa._delta(o, do)
             bwd = (q, k, v, None, do, lse, delta, scale)
-            ms = {
-                "flash_fwd": _median_ms(lambda: fa.flash_fwd_cuda(q, k, v, None, scale)),
-                "flash_bwd_dq": _median_ms(lambda: fa.flash_bwd_dq_cuda(*bwd)),
-                "flash_bwd_dkv": _median_ms(lambda: fa.flash_bwd_dkv_cuda(*bwd)),
+            calls = {
+                "flash_fwd": lambda: fa.flash_fwd_cuda(q, k, v, None, scale),
+                "flash_bwd_dq": lambda: fa.flash_bwd_dq_cuda(*bwd),
+                "flash_bwd_dkv": lambda: fa.flash_bwd_dkv_cuda(*bwd),
             }
+            ms = {name: _loop_ms(fn) for name, fn in calls.items()}
+            single = {name: _median_ms(fn) for name, fn in calls.items()}
         bounds = _flash_bounds(b, h, VT, HD, q.element_size(), False)
         kind = str(dtype).split(".")[-1]
         if (b, dtype) != (VIDEO_TRAIN_BATCH, BF):
             for name in FLASH_KERNELS:
                 bound = bounds[name]
-                print(f"{name} b={b} h={h} T={VT} d={HD} {kind}: kernel {ms[name]:.4f} ms, bound "
+                print(f"{name} b={b} h={h} T={VT} d={HD} {kind}: kernel {ms[name]:.4f} ms by a "
+                      f"loop of {TIMING_REPS} launches (one timed call: {single[name]:.4f} ms), "
+                      f"bound "
                       f"{bound['bound_ms']:.4f} ms by {bound['bound_by']} at the {kind} peak "
                       f"({bound['gflop']:.2f} GFLOP, {bound['mbytes']:.1f} MB; "
-                      f"{bound['gflop'] / ms[name]:.2f} TFLOP/s) (median of {TIMING_REPS})",
-                      flush=True)
+                      f"{bound['gflop'] / ms[name]:.2f} TFLOP/s)", flush=True)
             continue
         f = lambda x: x.float()
         with torch.no_grad():
@@ -1241,39 +1319,38 @@ def phase_flash_times(seed: int, dev) -> dict:
                     f(q), f(k), f(v), None, f(do), lse, delta, scale)),
             }
             lq, lk, lv = (a.transpose(1, 2) for a in (q, k, v))  # [B, H, T, d] views
-            lib_fwd = _median_ms(lambda: F.scaled_dot_product_attention(lq, lk, lv))
+            lib_fwd = _loop_ms(lambda: F.scaled_dot_product_attention(lq, lk, lv))
         leaves = [a.detach().clone().requires_grad_(True) for a in (lq, lk, lv)]
         out = F.scaled_dot_product_attention(*leaves)  # untimed forward; its graph is kept
         g = do.transpose(1, 2)
-        lib_bwd = _median_ms(lambda: torch.autograd.grad(out, leaves, g, retain_graph=True))
+        lib_bwd = _loop_ms(lambda: torch.autograd.grad(out, leaves, g, retain_graph=True))
         del out, leaves
         with torch.no_grad():
-            port_bwd = _median_ms(lambda: fa._backward(q, k, v, None, o, lse, do, scale))
+            port_bwd = _loop_ms(lambda: fa._backward(q, k, v, None, o, lse, do, scale))
         library = {"flash_fwd": lib_fwd, "flash_bwd_dq": lib_bwd, "flash_bwd_dkv": lib_bwd}
         for name in FLASH_KERNELS:
             bound = bounds[name]
-            times[name] = {"ms": ms[name], "plain_ms": plain_ms[name],
-                           "library_ms": library[name],
+            times[name] = {"ms": ms[name], "ms_single_call": single[name],
+                           "plain_ms": plain_ms[name], "library_ms": library[name],
                            **{k: bound[k] for k in ("bound_ms", "bound_by")}}
             if name != "flash_fwd":  # what the library's number covers, on the port
                 times[name]["port_backward_ms"] = port_bwd
             what = ("scaled_dot_product_attention" if name == "flash_fwd" else
                     "autograd's backward through scaled_dot_product_attention (dq, dk and dv "
                     "together: one time for both backward kernels)")
-            print(f"{name} b={b} h={h} T={VT} d={HD} {kind}: kernel {ms[name]:.4f} ms, plain "
+            print(f"{name} b={b} h={h} T={VT} d={HD} {kind}: kernel {ms[name]:.4f} ms by a loop "
+                  f"of {TIMING_REPS} launches (one timed call: {single[name]:.4f} ms), plain "
                   f"{plain_ms[name]:.4f} ms, library {what} {library[name]:.4f} ms, bound "
                   f"{bound['bound_ms']:.4f} ms by {bound['bound_by']} ({bound['gflop']:.2f} "
                   f"GFLOP, {bound['mbytes']:.1f} MB; {100 * bound['bound_ms'] / ms[name]:.1f}% "
-                  f"of the bound's rate, {bound['gflop'] / ms[name]:.2f} TFLOP/s) (median of "
-                  f"{TIMING_REPS})", flush=True)
+                  f"of the bound's rate, {bound['gflop'] / ms[name]:.2f} TFLOP/s)", flush=True)
         print(f"flash backward b={b} h={h} T={VT} d={HD} {kind}: the port's whole backward "
               f"(delta as a torch reduction, then dq and dk/dv) {port_bwd:.4f} ms, library "
-              f"{lib_bwd:.4f} ms (median of {TIMING_REPS})", flush=True)
-        grid = -(-VT // 64) * h
-        bwd_grid = -(-VT // 128) * h
-        print(f"grid: {grid} blocks a sample of 64 query rows x {h} heads (forward), "
-              f"{bwd_grid} of 128 rows (bf16 backward); at b=1 that is {grid / 132:.2f} and "
-              f"{bwd_grid / 132:.2f} blocks for each of the card's 132 SMs", flush=True)
+              f"{lib_bwd:.4f} ms (loops of {TIMING_REPS})", flush=True)
+        grid = -(-VT // 128) * h
+        print(f"grid: {grid} blocks a sample of 128 rows x {h} heads (bf16 forward and "
+              f"backward); at b=1 that is {grid / 132:.2f} blocks for each of the card's 132 SMs",
+              flush=True)
     torch.cuda.empty_cache()
     return times
 
@@ -1305,6 +1382,63 @@ def phase_bwd_times(seed: int, dev) -> dict:
         del trainer, on_card
         torch.cuda.empty_cache()
     print("bwd times (ms, median of %d): %s" % (TIMING_REPS, json.dumps(out)), flush=True)
+    return out
+
+
+def phase_kernel_times(seed: int, dev, profile: bool = False) -> dict:
+    """Kernels #4 (b = 8, 12 heads, T = 1568, head_dim 64, bf16, dense) and
+    #3 (b = 128, T = 197) by the launch loop, each beside its library
+    yardstick (scaled_dot_product_attention; the composition's backward),
+    then the steps and the forward they carry: one image step of each track
+    at b = 128, the video forward at b = 8 and one video step of each track
+    at b = 8. Only the port's entry points that every version since the
+    video classifier has, so the same script times an older checkout of the package
+    (``--kernel-times``); with ``profile``, also device time by kernel of the
+    full-track image step."""
+    from metatransformer_tpu_torch.core import encoder as enc
+    from metatransformer_tpu_torch.models import video_classifier as vc
+    from metatransformer_tpu_torch.ops import flash_attention as fa
+
+    out = {}
+    q, k, v, _, _ = _flash_inputs(VIDEO_TRAIN_BATCH, HEADS, VT, HD, BF, False, seed, dev)
+    scale = float(HD) ** -0.5
+    with torch.no_grad():
+        out["flash_fwd"] = _loop_ms(lambda: fa.flash_fwd_cuda(q, k, v, None, scale))
+        lq, lk, lv = (a.transpose(1, 2) for a in (q, k, v))  # [B, H, T, d] views
+        out["flash_fwd_library"] = _loop_ms(lambda: F.scaled_dot_product_attention(lq, lk, lv))
+    del q, k, v, lq, lk, lv
+    row = _fused_kernel_times("attn_sublayer_bwd", TRAIN_BATCH, seed, dev, plain_too=False)
+    out["attn_sublayer_bwd"] = row["ms"]
+    out["attn_sublayer_bwd_library"] = row["library_composition_ms"]
+    torch.cuda.empty_cache()
+    step = lambda t, batch, g=None: _median_ms(
+        lambda: t._step(t.trainable, t.frozen, batch, g))
+    for track in ("frozen", "full"):
+        trainer, _ = _make_trainer(track, seed)
+        on_card = trainer._to_device(_train_batch())
+        out[f"image_step_{track}"] = step(trainer, on_card)
+        if profile and track == "full":
+            _profile_step(lambda: trainer._step(trainer.trainable, trainer.frozen, on_card, None),
+                          "image full-track step")
+        del trainer, on_card
+        torch.cuda.empty_cache()
+    cfg = _video_cfg()
+    model = vc.VideoClassifier(cfg, vc.init(cfg, torch.Generator().manual_seed(seed)),
+                               precision=enc.BF16)
+    clips = torch.randint(0, 256, (VIDEO_TRAIN_BATCH, 16, 224, 224, 3),
+                          generator=torch.Generator().manual_seed(seed + 2),
+                          dtype=torch.uint8).to(dev)
+    with torch.no_grad():
+        out["video_forward_b8"] = _median_ms(lambda: model(clips))
+    del model, clips
+    torch.cuda.empty_cache()
+    for track in ("frozen", "full"):
+        trainer = _make_video_trainer(track, seed)
+        out[f"video_step_{track}"] = step(trainer, trainer._to_device(_video_batch()))
+        del trainer
+        torch.cuda.empty_cache()
+    print(f"kernel times (ms; kernels: loops of {TIMING_REPS} launches, steps and forward: "
+          f"median of {TIMING_REPS}): {json.dumps(out)}", flush=True)
     return out
 
 
@@ -1425,18 +1559,20 @@ def phase_fps_times(seed: int, dev) -> dict:
     for b, n, g in FPS_CASES:
         pts = _clouds(seed, b, n).to(dev)
         with torch.no_grad():
-            ms = _median_ms(lambda: po.fps_cuda(pts, g))
+            ms = _loop_ms(lambda: po.fps_cuda(pts, g))
+            single = _median_ms(lambda: po.fps_cuda(pts, g))
             plain_ms = _median_ms(lambda: po.furthest_point_sample_plain(pts, g),
                                   reps=20 if g <= 512 else 3)
         bound = _fps_bound(b, n, g)
-        print(f"fps B={b} N={n} G={g}: kernel {ms:.4f} ms ({1e3 * ms / (g - 1):.3f} us a "
+        print(f"fps B={b} N={n} G={g}: kernel {ms:.4f} ms by a loop of {TIMING_REPS} launches "
+              f"(one timed call: {single:.4f} ms; {1e3 * ms / (g - 1):.3f} us a "
               f"round, {po._fps_threads(n)} threads a block, {b} blocks), plain {plain_ms:.4f} "
               f"ms, library none, bound {bound['bound_ms']:.6f} ms by {bound['bound_by']} "
               f"({bound['gflop']:.4f} GFLOP fp32, {bound['mbytes']:.3f} MB; "
-              f"{100 * bound['bound_ms'] / ms:.2f}% of the bound's rate) (median of "
-              f"{TIMING_REPS}; plain: of {20 if g <= 512 else 3})", flush=True)
+              f"{100 * bound['bound_ms'] / ms:.2f}% of the bound's rate) (plain: median of "
+              f"{20 if g <= 512 else 3})", flush=True)
         if (b, n, g) == FPS_MAIN_CASE:
-            times["fps"] = {"ms": ms, "plain_ms": plain_ms,
+            times["fps"] = {"ms": ms, "ms_single_call": single, "plain_ms": plain_ms,
                             **{k: bound[k] for k in ("bound_ms", "bound_by")}}
     return times
 
@@ -1667,6 +1803,10 @@ def main() -> None:
     ap.add_argument("--bwd-times", action="store_true",
                     help="only build and time the flash backward kernels and one step of "
                          "each video track, to compare checkouts in turns; prints no result")
+    ap.add_argument("--kernel-times", action="store_true",
+                    help="only build and time kernels #3 and #4 beside their library calls, "
+                         "one image step of each track, the video forward and one video step "
+                         "of each track, to compare checkouts in turns; prints no result")
     args = ap.parse_args()
 
     phase_device()
@@ -1674,6 +1814,9 @@ def main() -> None:
     phase_build()
     if args.bwd_times:
         phase_bwd_times(args.seed, dev)
+        return
+    if args.kernel_times:
+        phase_kernel_times(args.seed, dev, args.profile)
         return
     errs = phase_kernels(args.seed, dev)
     phase_autograd(args.seed, dev)
@@ -1744,7 +1887,8 @@ def main() -> None:
             "launches": sum(counts[name] for counts in by_path.values()),
             "launches_by_path": {path: counts[name] for path, counts in by_path.items()},
             "max_abs_err": errs[name],
-            "ms": times[name]["ms"],
+            "ms": times[name]["ms"],  # a loop of launches between two events, over the count
+            "ms_single_call": times[name]["ms_single_call"],  # one timed call, host work included
             "plain_ms": times[name]["plain_ms"],
             "bound_ms": times[name]["bound_ms"],
             "bound_by": times[name]["bound_by"],

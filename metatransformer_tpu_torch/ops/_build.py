@@ -4,7 +4,7 @@ Each source under ``csrc/`` is compiled by its own ``nvcc`` for ``sm_90a``
 into its own shared library with a plain C interface, all compilers started
 together, at first use, and loaded with ``ctypes``. A library lands in
 ``metatransformer_tpu_torch/_build/`` under a name keyed by a hash of its
-source, the shared header and the flags, so a changed source builds anew
+source, the shared headers and the flags, so a changed source builds anew
 and an unchanged one is reused; beside it, the assembler's report of each
 kernel's registers, shared memory and spills (``-Xptxas -v``). There is no
 fallback: a missing ``nvcc`` or a failed build raises.
@@ -24,7 +24,8 @@ from pathlib import Path
 from typing import Dict
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-_HEADERS = (_CSRC / "common.cuh",)
+# every header under csrc/ is part of every library's key
+_HEADERS = (_CSRC / "common.cuh", _CSRC / "wgmma.cuh", _CSRC / "gemm_sm90.cuh")
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -48,12 +49,18 @@ _SOURCES = {
         # stream
         "mt_attn_sublayer_bwd": [_vp] * 20 + [_int] * 4 + [_float, _vp],
         "mt_ln_grad_chunks": [_int],
+        # A, B, bias, C, M, N, K, trans_b, epi, stream: the GEMM alone (card tests)
+        "mt_gemm_sm90": [_vp] * 4 + [_int] * 5 + [_vp],
+    },
+    _CSRC / "flash_attention_fwd.cu": {
+        # the bf16 forward on wgmma: q, k, v, bias, o, lse, B, T, H, hd, q/k/v
+        # strides (b, t, h), scale, is_fp32 (0), stream
+        "mt_flash_fwd": [_vp] * 6 + [_int] * 4 + [_ll] * 3 + [_float, _int, _vp],
     },
     _CSRC / "flash_attention.cu": {
-        # q, k, v, bias, o, lse, B, T, H, hd, q/k/v strides (b, t, h), scale,
-        # is_fp32, stream
-        "mt_flash_fwd": [_vp] * 6 + [_int] * 4 + [_ll] * 3 + [_float, _int, _vp],
-        # the fp32 backward; arguments as mt_flash_bwd_dq / mt_flash_bwd_dkv
+        # the fp32 route; arguments as mt_flash_fwd, mt_flash_bwd_dq and
+        # mt_flash_bwd_dkv with is_fp32 = 1
+        "mt_flash_fwd_f32": [_vp] * 6 + [_int] * 4 + [_ll] * 3 + [_float, _int, _vp],
         "mt_flash_bwd_dq_f32": [_vp] * 8 + [_int] * 4 + [_ll] * 6 + [_float, _int, _vp],
         "mt_flash_bwd_dkv_f32": [_vp] * 9 + [_int] * 4 + [_ll] * 6 + [_float, _int, _vp],
     },

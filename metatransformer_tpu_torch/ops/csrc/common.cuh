@@ -1,9 +1,9 @@
-// Device code shared by the kernels of this package (fused_block.cu:
-// sublayer forwards, fused_block_bwd.cu: attention-sublayer backward,
-// flash_attention.cu, which uses the bf16 and cp.async helpers only):
-// bf16 helpers, the row LayerNorm and the tensor-core GEMM. Each .cu file
-// that includes this header is compiled on its own into its own shared
-// library, so everything here lives in an anonymous namespace.
+// Device code shared by the kernels of this package: bf16 helpers, the row
+// LayerNorm, the cp.async helpers, the epilogue kinds and the wmma GEMM of
+// the sublayer forwards (fused_block.cu; the backward's GEMM is the wgmma
+// one of gemm_sm90.cuh, the wgmma building blocks are wgmma.cuh). Each .cu
+// file that includes this header is compiled on its own into its own
+// shared library, so everything here lives in an anonymous namespace.
 
 #pragma once
 

@@ -1,12 +1,15 @@
-// Flash attention for long sequences on Hopper (sm_90a): the forward for
-// bf16 and fp32 inputs, and the two backward kernels for fp32 inputs (the
-// bf16 backward is flash_attention_bwd.cu, on wgmma).
+// Flash attention for long sequences on Hopper (sm_90a), fp32 inputs: the
+// forward and the two backward kernels on plain fp32 FMAs (no TF32), the
+// route of the video-MAE decoder under the FP32 policy. The bf16 kernels
+// are flash_attention_fwd.cu and flash_attention_bwd.cu, on wgmma; every
+// call takes exactly one route by its element type.
 //
 // Three public entry points with a plain C interface, bound with ctypes by
 // metatransformer_tpu_torch/ops/flash_attention.py. Each is one launch and
-// replaces one Pallas kernel of metatransformer_tpu/ops/flash_attention.py:
+// replaces one Pallas kernel of metatransformer_tpu/ops/flash_attention.py
+// at fp32:
 //
-//   mt_flash_fwd          `_fwd_kernel` (:70)      o = softmax(q k^T scale + bias) v
+//   mt_flash_fwd_f32      `_fwd_kernel` (:70)      o = softmax(q k^T scale + bias) v
 //                                                 and lse = m + log l per row
 //   mt_flash_bwd_dq_f32   `_bwd_dq_kernel` (:137)  dq = scale * sum_k ds k
 //   mt_flash_bwd_dkv_f32  `_bwd_dkv_kernel` (:176) dk = scale * sum_q ds^T q,
@@ -16,18 +19,15 @@
 // Numerics follow the Pallas kernels' cast points. Logits are (q . k)
 // accumulated in fp32, times scale, plus the additive key bias (the scale is
 // not folded into q). Row max m, row sum l and the output accumulator are
-// fp32 and updated online, tile by tile; p is rounded to v's type before
-// p v; the output is divided by max(l, 1e-30) after the last tile. The
-// backward forms p from the forward's fp32 lse, rounds ds to k's type and p
-// to dO's type before the products, scales dq and dk after the sum and
-// leaves dv unscaled. The arithmetic follows the element type: bf16 inputs
-// go through the tensor cores (wmma m16n16k16, fp32 accumulation), fp32
-// inputs through plain fp32 FMAs (no TF32), which is slow and exact. The
-// backward templates below are instantiated for fp32 only.
+// fp32 and updated online, tile by tile; the output is divided by
+// max(l, 1e-30) after the last tile. The backward forms p from the
+// forward's fp32 lse, scales dq and dk after the sum and leaves dv
+// unscaled. Only the order of summation and expf differ from the plain
+// versions.
 //
-// What bounds it: at the video path's shapes (T = 1568, head_dim 64, B*H =
-// 96, bf16) the forward does 60 GFLOP over 77 MB, so tensor-core operations
-// and not bytes; the backward kernels likewise (91 and 121 GFLOP).
+// What bounds it: fp32 FMAs outside the tensor cores (67 TFLOP/s on an H100
+// SXM): at the MAE decoder's shapes (T = 1568, head_dim 64, B*H = 24) the
+// forward does 15 GFLOP.
 //
 // Design notes.
 //  * K and V of a head do not fit in a block's shared memory at T = 1568
@@ -44,12 +44,11 @@
 //  * Masked keys carry the caller's additive -1e30, so a fully masked
 //    sample gives a uniform p over its T keys and no NaN.
 //  * A warp owns 16 rows of the tile and a lane pair one row. Logits of a
-//    16 x 64 tile are staged in a per-warp fp32 scratch; the forward's
-//    output row lives in the lane pair's registers so the online rescale is
-//    a register multiply. Every [T, T] quantity stays on chip.
+//    16 x 64 tile are staged in a per-warp fp32 scratch; the output row
+//    lives in the lane pair's registers, so the online rescale is a register
+//    multiply. Every [T, T] quantity stays on chip.
 //  * Determinism: dq sums over key tiles inside one block, dk/dv over query
 //    tiles inside one block, in a fixed order. No atomics.
-//  * wgmma, TMA and warp specialisation are later work.
 
 #include "common.cuh"
 
@@ -63,26 +62,18 @@ constexpr int FA_S_LD = FA_TILE + 4; // fp32 logits rows
 template <typename T>
 __device__ __forceinline__ T from_f(float v);
 template <>
-__device__ __forceinline__ bf16 from_f<bf16>(float v) { return f2b(v); }
-template <>
 __device__ __forceinline__ float from_f<float>(float v) { return v; }
 
 template <typename T, int HD>
 struct FaCfg {
-  static constexpr bool TENSOR = std::is_same<T, bf16>::value;
   static constexpr int CHUNK = 16 / sizeof(T);  // elements in 16 bytes
   static constexpr int LD = HD + CHUNK;         // q/k/v/dO tile rows (T)
   static constexpr int P_LD = FA_TILE + CHUNK;  // p / ds rows (T)
-  static constexpr int O_LD = HD + 4;           // staged fp32 output rows
   static constexpr int TILE = FA_TILE * LD;     // elements
   static constexpr int TILE_BYTES = TILE * sizeof(T);
   static constexpr int S_BYTES = 16 * FA_S_LD * 4;
   static constexpr int P_BYTES = 16 * P_LD * sizeof(T);
-  // The tensor-core path stages a warp's [16, HD] fp32 output in shared
-  // memory; the FMA path keeps it in registers.
-  static constexpr int O_BYTES = TENSOR ? 16 * O_LD * 4 : 0;
-  static_assert(16 * O_LD * 4 <= 2 * S_BYTES, "output staging must fit in s | dp");
-  static constexpr int FWD_WARP_BYTES = S_BYTES + P_BYTES + O_BYTES;
+  static constexpr int FWD_WARP_BYTES = S_BYTES + P_BYTES;
   static constexpr int FWD_BYTES = 5 * TILE_BYTES + FA_WARPS * FWD_WARP_BYTES + 2 * FA_TILE * 4;
   static constexpr int DQ_WARP_BYTES = 2 * S_BYTES + P_BYTES;
   static constexpr int DQ_BYTES = 4 * TILE_BYTES + FA_WARPS * DQ_WARP_BYTES + FA_TILE * 4;
@@ -110,25 +101,6 @@ template <typename T, int HD>
 __device__ __forceinline__ void tile_product(float* dst, const T* a_rows, const T* b_tile) {
   using C = FaCfg<T, HD>;
   constexpr int LD = C::LD;
-  if constexpr (C::TENSOR) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4];
-#pragma unroll
-    for (int n = 0; n < 4; ++n) wmma::fill_fragment(acc[n], 0.f);
-#pragma unroll
-    for (int kk = 0; kk < HD; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::load_matrix_sync(a, a_rows + kk, LD);
-#pragma unroll
-      for (int n = 0; n < 4; ++n) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bfr;
-        wmma::load_matrix_sync(bfr, b_tile + n * 16 * LD + kk, LD);
-        wmma::mma_sync(acc[n], a, bfr, acc[n]);
-      }
-    }
-#pragma unroll
-    for (int n = 0; n < 4; ++n)
-      wmma::store_matrix_sync(dst + n * 16, acc[n], FA_S_LD, wmma::mem_row_major);
-  } else {
     // A lane pair owns row r; each lane takes 32 of the 64 columns.
     const int lane = threadIdx.x & 31, r = lane >> 1, half = (lane & 1) * 32;
     float acc[32];
@@ -147,7 +119,6 @@ __device__ __forceinline__ void tile_product(float* dst, const T* a_rows, const 
     }
 #pragma unroll
     for (int j = 0; j < 32; ++j) dst[r * FA_S_LD + half + j] = acc[j];
-  }
 }
 
 // Store N fp32 values, times mul, as T in 16-byte chunks.
@@ -165,45 +136,12 @@ __device__ __forceinline__ void store_chunks(T* dst, const float* vals, float mu
 }
 
 // A warp's [16, HD] fp32 accumulator of sum over tiles of a[16, 64] .
-// b_tile[64, HD]: tensor-core fragments for bf16, a lane's half row in
-// registers for fp32.
-template <typename T, int HD, bool TENSOR = FaCfg<T, HD>::TENSOR>
+// b_tile[64, HD]: a lane's half row in registers.
+template <typename T, int HD>
 struct RowAcc;
 
 template <int HD>
-struct RowAcc<bf16, HD, true> {
-  using C = FaCfg<bf16, HD>;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> f[HD / 16];
-
-  __device__ __forceinline__ void zero() {
-#pragma unroll
-    for (int n = 0; n < HD / 16; ++n) wmma::fill_fragment(f[n], 0.f);
-  }
-  __device__ __forceinline__ void add_product(const bf16* a, const bf16* b_tile) {
-#pragma unroll
-    for (int kk = 0; kk < FA_TILE; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> af;
-      wmma::load_matrix_sync(af, a + kk, C::P_LD);
-#pragma unroll
-      for (int n = 0; n < HD / 16; ++n) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bfr;
-        wmma::load_matrix_sync(bfr, b_tile + kk * C::LD + n * 16, C::LD);
-        wmma::mma_sync(f[n], af, bfr, f[n]);
-      }
-    }
-  }
-  // The accumulators as fp32 rows [16, O_LD] in `stage`.
-  __device__ __forceinline__ void dump(float* stage) {
-    __syncwarp();
-#pragma unroll
-    for (int n = 0; n < HD / 16; ++n)
-      wmma::store_matrix_sync(stage + n * 16, f[n], C::O_LD, wmma::mem_row_major);
-    __syncwarp();
-  }
-};
-
-template <int HD>
-struct RowAcc<float, HD, false> {
+struct RowAcc<float, HD> {
   using C = FaCfg<float, HD>;
   float v[HD / 2];
 
@@ -260,7 +198,6 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
   unsigned char* wb = smem + 5 * C::TILE_BYTES + warp * C::FWD_WARP_BYTES;
   float* ws = reinterpret_cast<float*>(wb);
   T* wp = reinterpret_cast<T*>(wb + C::S_BYTES);
-  float* wo = reinterpret_cast<float*>(wb + C::S_BYTES + C::P_BYTES);
   float* kb = reinterpret_cast<float*>(smem + 5 * C::TILE_BYTES + FA_WARPS * C::FWD_WARP_BYTES);
 
   const int q0 = blockIdx.x * FA_TILE, h = blockIdx.y, b = blockIdx.z, H = gridDim.y;
@@ -268,7 +205,7 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
   const T* wq = Qs + warp * 16 * C::LD;
   // A lane pair owns row r: this lane takes 32 of a tile's 64 logits
   // (half..) and the half row c_lo.. of the output.
-  const int r = lane >> 1, half = (lane & 1) * 32, c_lo = (lane & 1) * (HD / 2);
+  const int r = lane >> 1, half = (lane & 1) * 32;
 
   load_tile_async<T, HD>(Qs, q + head, st, q0, Tlen);
   auto load_kv = [&](int stage, int k0) {
@@ -281,10 +218,7 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
 
   float m = -INFINITY, l = 0.f;  // l: this lane's share of the row sum
   RowAcc<T, HD> pv;
-  float oreg[HD / 2];
-#pragma unroll
-  for (int i = 0; i < HD / 2; ++i) oreg[i] = 0.f;
-  if constexpr (!C::TENSOR) pv.zero();
+  pv.zero();
 
   const int nkt = (Tlen + FA_TILE - 1) / FA_TILE;
   for (int kt = 0; kt < nkt; ++kt) {
@@ -319,18 +253,9 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
     m = m_new;
     __syncwarp();
 
-    if constexpr (C::TENSOR) {
-      pv.zero();
-      pv.add_product(wp, vs);
-      pv.dump(wo);
 #pragma unroll
-      for (int i = 0; i < HD / 2; ++i)
-        oreg[i] = oreg[i] * alpha + wo[r * C::O_LD + c_lo + i];
-    } else {
-#pragma unroll
-      for (int i = 0; i < HD / 2; ++i) pv.v[i] *= alpha;
-      pv.add_product(wp, vs);
-    }
+    for (int i = 0; i < HD / 2; ++i) pv.v[i] *= alpha;
+    pv.add_product(wp, vs);
     __syncthreads();  // tile kt consumed before its stage is refilled
   }
 
@@ -338,13 +263,10 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
   const float l_safe = fmaxf(l, 1e-30f);
   const int t = q0 + warp * 16 + r;
   if (t < Tlen) {
-    if constexpr (!C::TENSOR) {
+    float oreg[HD / 2];
 #pragma unroll
-      for (int i = 0; i < HD / 2; ++i) oreg[i] = pv.v[i];
-    }
-#pragma unroll
-    for (int i = 0; i < HD / 2; ++i) oreg[i] = oreg[i] / l_safe;
-    T* dst = o + (((long long)b * Tlen + t) * H + h) * HD + c_lo;
+    for (int i = 0; i < HD / 2; ++i) oreg[i] = pv.v[i] / l_safe;
+    T* dst = o + (((long long)b * Tlen + t) * H + h) * HD + (lane & 1) * (HD / 2);
     store_chunks<T, HD / 2>(dst, oreg, 1.f);
     if ((lane & 1) == 0) lse[((long long)b * H + h) * Tlen + t] = m + logf(l_safe);
   }
@@ -531,8 +453,6 @@ int launch_flash(int which, const FaArgs& a) {
     if (err != cudaSuccess) return static_cast<int>(err);
     flash_fwd<T, HD><<<grid, FA_THREADS, C::FWD_BYTES, a.stream>>>(
         q, k, v, a.bias, static_cast<T*>(a.o), a.lse_out, a.T, a.sb, a.st, a.sh, a.scale);
-  } else if constexpr (C::TENSOR) {
-    return static_cast<int>(cudaErrorInvalidValue);  // bf16: flash_attention_bwd.cu
   } else if (which == FA_DQ) {
     err = cudaFuncSetAttribute(flash_bwd_dq<T, HD>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, C::DQ_BYTES);
@@ -561,9 +481,11 @@ int launch_flash_hd(int which, int hd, const FaArgs& a) {
   }
 }
 
+// fp32 only: bf16 inputs go to flash_attention_fwd.cu / flash_attention_bwd.cu.
 int launch_flash_any(int which, int hd, int is_fp32, const FaArgs& a) {
-  if (a.B <= 0 || a.T <= 0 || a.H <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  return is_fp32 ? launch_flash_hd<float>(which, hd, a) : launch_flash_hd<bf16>(which, hd, a);
+  if (!is_fp32 || a.B <= 0 || a.T <= 0 || a.H <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_flash_hd<float>(which, hd, a);
 }
 
 }  // namespace
@@ -574,10 +496,11 @@ const char* mt_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// q, k, v: [B, T, H, hd] with element strides (sb, st, sh, 1), bf16 or
-// (is_fp32) fp32; bias: [B, T] fp32 or null. Outputs: o contiguous
-// [B, T, H, hd] in the inputs' type, lse [B, H, T] fp32.
-int mt_flash_fwd(const void* q, const void* k, const void* v, const void* bias, void* o,
+// q, k, v: [B, T, H, hd] fp32 with element strides (sb, st, sh, 1); bias:
+// [B, T] fp32 or null. Outputs: o contiguous [B, T, H, hd] fp32, lse
+// [B, H, T] fp32. is_fp32 must be 1 (bf16: mt_flash_fwd of
+// flash_attention_fwd.cu).
+int mt_flash_fwd_f32(const void* q, const void* k, const void* v, const void* bias, void* o,
                  void* lse, int B, int T, int H, int hd, long long sb, long long st,
                  long long sh, float scale, int is_fp32, void* stream) {
   FaArgs a{};

@@ -47,6 +47,9 @@
 //    operand MN-major (the transpose bit) from the same shared tile the
 //    first product read K-major. Nothing of size [keys, queries] touches
 //    shared memory.
+//  * The building blocks (swizzled tiles, descriptors, the wgmma products,
+//    the register repack) are wgmma.cuh, shared with the forward and the
+//    attention-sublayer backward.
 //  * Shared tiles use the 128-byte swizzle that the wgmma descriptors name:
 //    a [rows, d] tile is stored as 64-column blocks of 128-byte rows, the
 //    16-byte chunk c of row r at chunk c ^ (r % 8). cp.async writes each
@@ -66,13 +69,12 @@
 //  * TMA and warp specialisation (a producer warp, the two warpgroups out
 //    of lockstep) are later work.
 
-#include "common.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
 constexpr int BW_TILE = 64;  // rows of a streamed tile
 constexpr int BW_STAGES = 2;
-constexpr float LOG2E = 1.4426950408889634f;
 
 constexpr int BW_THREADS = 256;  // two consumer warpgroups
 constexpr int BW_ROWS = 128;     // resident rows of a block, 64 a warpgroup
@@ -94,187 +96,6 @@ struct BwCfg {
       2 * RES_BYTES + BW_STAGES * 2 * TILE_BYTES + BW_STAGES * VEC_BYTES + 1024;
   static constexpr int ACC = HDP / 2;  // fp32 accumulator registers of a 64 x HDP product
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// Byte offset of 16-byte chunk `ch` (along head_dim) of row r in a tile of
-// `rows` rows: 64-column blocks of 128-byte rows, 128-byte swizzle.
-__device__ __forceinline__ uint32_t swz(int rows, int r, int ch) {
-  return (ch >> 3) * rows * 128 + r * 128 + (((ch & 7) ^ (r & 7)) << 4);
-}
-
-__device__ __forceinline__ void cp_async16_s(uint32_t dst, const void* src, bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(ok ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async4_s(uint32_t dst, const void* src, bool ok) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
-               "r"(ok ? 4 : 0));
-}
-// cp.async writes through the generic proxy; wgmma reads through the async one.
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// Rows t0 .. t0+n-1 of one head ([T, HD], `row_stride` elements apart) into
-// a swizzled tile of `rows` rows; rows past T are zero-filled.
-template <int HD>
-__device__ __forceinline__ void load_rows(uint32_t tile, int rows, const bf16* src,
-                                          long long row_stride, int t0, int n, int Tlen) {
-  constexpr int CH = HD / 8;
-  for (int c = threadIdx.x; c < n * CH; c += BW_THREADS) {
-    const int r = c / CH, ch = c % CH, t = t0 + r;
-    const bool ok = t < Tlen;
-    const bf16* row = src + (long long)(ok ? t : 0) * row_stride;
-    cp_async16_s(tile + swz(rows, r, ch), row + ch * 8, ok);
-  }
-}
-
-// head_dim 32: zero the upper half of every row of a tile once; no copy
-// writes there.
-template <int HD>
-__device__ __forceinline__ void zero_pad(unsigned char* tile, int rows) {
-  if constexpr (HD < 64) {
-    for (int c = threadIdx.x; c < rows * 4; c += BW_THREADS) {
-      const int r = c >> 2, ch = 4 + (c & 3);
-      *reinterpret_cast<uint4*>(tile + swz(rows, r, ch)) = make_uint4(0, 0, 0, 0);
-    }
-  }
-}
-
-// wgmma shared-memory descriptors, 128-byte swizzle (layout type 1), 8-row
-// groups 1024 bytes apart (stride offset 64 x 16 bytes). K-major: the leading
-// offset is unused. MN-major: 64-column blocks `rows` x 128 bytes apart.
-__device__ __forceinline__ uint64_t desc_k(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
-}
-__device__ __forceinline__ uint64_t desc_mn(uint32_t addr, int rows) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(rows * 8) << 16) | (64ull << 32) |
-         (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// Keeps the compiler from moving reads or writes of registers that an
-// in-flight wgmma owns across this point.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// d[64 x 64] (+)= A[64 x 16] B[16 x 64]: A and B K-major in shared memory.
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db,
-                                             int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31 "
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// d[64 x 64] += A[64 x 16] B[16 x 64]: A in registers, B MN-major in shared
-// memory (the transpose bit set).
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t* a, uint64_t db) {
-  asm volatile(
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31 "
-      "}, {%32, %33, %34, %35}, %36, 1, 1, 1, 1;\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
-}
-
-// d[64 x 128] += A[64 x 16] B[16 x 128]: A in registers, B MN-major in shared
-// memory (the transpose bit set).
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t* a, uint64_t db) {
-  asm volatile(
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63 "
-      "}, {%64, %65, %66, %67}, %68, 1, 1, 1, 1;\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
-}
-
-// d[64 x 64] = A[rows a_m0 .. a_m0+63 of tile a] . B[64 rows of tile b]^T
-// over head_dim, both K-major.
-template <int HD>
-__device__ __forceinline__ void product_ss(float (&d)[32], uint32_t a, int a_rows, int a_m0,
-                                           uint32_t b, int b_rows) {
-#pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
-    const uint32_t ka = (kk >> 2) * a_rows * 128 + (kk & 3) * 32;
-    const uint32_t kb = (kk >> 2) * b_rows * 128 + (kk & 3) * 32;
-    wgmma_ss_n64(d, desc_k(a + a_m0 * 128 + ka), desc_k(b + kb), kk > 0);
-  }
-}
-
-// d[64 x HDP] += A[64 x 64] (registers: four 16-column slices) . tile b
-// [64 rows, HDP], read MN-major.
-template <int HD>
-__device__ __forceinline__ void product_rs(float (&d)[BwCfg<HD>::ACC], const uint32_t (&a)[16],
-                                           uint32_t b) {
-#pragma unroll
-  for (int ks = 0; ks < BW_TILE / 16; ++ks) {
-    const uint64_t db = desc_mn(b + ks * 16 * 128, BW_TILE);
-    if constexpr (BwCfg<HD>::HDP == 64)
-      wgmma_rs_n64(d, a + 4 * ks, db);
-    else
-      wgmma_rs_n128(d, a + 4 * ks, db);
-  }
-}
-
-// A thread's accumulator element i of a 64 x N wgmma product sits at row
-// warp * 16 + lane / 4 (+ 8 for i % 4 >= 2), column (i / 4) * 8 +
-// (lane % 4) * 2 + i % 2. Elements 2j and 2j + 1 are neighbours in a row,
-// and packed as bf16 pairs in order they are the A fragment of the next
-// product: slice ks is registers 4ks .. 4ks+3.
 
 // ---------------------------------------------------------------------------
 // dk, dv: one block per (128 keys, head, sample), streaming query tiles.
@@ -376,7 +197,7 @@ flash_bwd_dkv_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int j = 0; j < 16; ++j) pf[j] = pack_bf16(sv[2 * j], sv[2 * j + 1]);
     wgmma_fence();
     fence_regs(acc_v);
-    product_rs<HD>(acc_v, pf, dos);  // dv += p^T dO
+    product_rs<C::HDP, BW_TILE>(acc_v, pf, dos);  // dv += p^T dO
     wgmma_commit();
     fence_regs(dp);
     wgmma_wait<1>();  // dp^T has landed (groups retire in order)
@@ -394,7 +215,7 @@ flash_bwd_dkv_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int j = 0; j < 16; ++j) df[j] = pack_bf16(dp[2 * j], dp[2 * j + 1]);
     wgmma_fence();
     fence_regs(acc_k);
-    product_rs<HD>(acc_k, df, qs);  // dk += ds^T q
+    product_rs<C::HDP, BW_TILE>(acc_k, df, qs);  // dk += ds^T q
     wgmma_commit();
     wgmma_wait<0>();  // before the barrier that frees this stage
     fence_regs(acc_v);
@@ -528,7 +349,7 @@ flash_bwd_dq_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int j = 0; j < 16; ++j) df[j] = pack_bf16(dp[2 * j], dp[2 * j + 1]);
     wgmma_fence();
     fence_regs(acc);
-    product_rs<HD>(acc, df, ks);  // dq += ds k
+    product_rs<C::HDP, BW_TILE>(acc, df, ks);  // dq += ds k
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(acc);

@@ -11,9 +11,11 @@ logits never reach device memory, forward or backward:
 * :func:`flash_bwd_dq_cuda` replaces ``_bwd_dq_kernel`` (``:137``);
 * :func:`flash_bwd_dkv_cuda` replaces ``_bwd_dkv_kernel`` (``:176``).
 
-The backward kernels take bf16 inputs to ``csrc/flash_attention_bwd.cu``
-(``wgmma``, P and dS kept in registers) and fp32 inputs to the FMA kernels
-of ``csrc/flash_attention.cu``; each call has exactly one route, by dtype.
+Every kernel takes bf16 inputs to a ``wgmma`` kernel (the forward in
+``csrc/flash_attention_fwd.cu``, the backward in
+``csrc/flash_attention_bwd.cu``; P and dS kept in registers) and fp32 inputs
+to the FMA kernels of ``csrc/flash_attention.cu`` (the ``*_f32`` entries);
+each call has exactly one route, by dtype (:func:`_entry`).
 
 Layout: q, k, v are ``[B, T, H, d]`` (the encoder's layout) and may be
 strided views of one ``[B, T, 3, H, d]`` projection; the kernels index them
@@ -184,18 +186,24 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def _entry(name: str, dtype):
+    """The C entry of kernel ``name`` for ``dtype``: the bf16 ``wgmma``
+    kernel, or the fp32 FMA kernel (``name + "_f32"``)."""
+    from metatransformer_tpu_torch.ops import _build
+
+    return getattr(_build.library(), name if dtype == torch.bfloat16 else name + "_f32")
+
+
 def flash_fwd_cuda(q, k, v, bias, scale) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the forward kernel. q, k, v: [B, T, H, d] bf16 or fp32 with
     equal strides; bias: [B, T] fp32 or None. Returns ``(o, lse)``."""
-    from metatransformer_tpu_torch.ops import _build
-
     _check_qkv(q, k, v, bias)
     b, t, h, d = q.shape
-    lib = _build.library()
+    fn = _entry("mt_flash_fwd", q.dtype)
     o = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):  # the launch goes to this device's current stream
-        rc = lib.mt_flash_fwd(
+        rc = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias), o.data_ptr(),
             lse.data_ptr(), b, t, h, d, *q.stride()[:3], ctypes.c_float(scale),
             int(q.dtype == torch.float32), torch.cuda.current_stream().cuda_stream,
@@ -222,13 +230,10 @@ def flash_bwd_dq_cuda(q, k, v, bias, do, lse, delta, scale, out=None):
     """Launch the dq kernel. ``do`` contiguous [B, T, H, d] in q's dtype;
     ``lse``, ``delta`` [B, H, T] fp32. ``out``: an optional [B, T, H, d]
     (strided) tensor to write into."""
-    from metatransformer_tpu_torch.ops import _build
-
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device) if out is None else out
     _check_bwd(q, k, v, bias, do, lse, delta, [("dq", dq)])
     b, t, h, d = q.shape
-    lib = _build.library()
-    fn = lib.mt_flash_bwd_dq if q.dtype == torch.bfloat16 else lib.mt_flash_bwd_dq_f32
+    fn = _entry("mt_flash_bwd_dq", q.dtype)
     with torch.cuda.device(q.device):
         rc = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias), do.data_ptr(),
@@ -247,15 +252,12 @@ flash_bwd_dq_cuda.launches = 0
 def flash_bwd_dkv_cuda(q, k, v, bias, do, lse, delta, scale, out=None):
     """Launch the dk/dv kernel; arguments as :func:`flash_bwd_dq_cuda`.
     ``out``: an optional ``(dk, dv)`` pair with equal strides."""
-    from metatransformer_tpu_torch.ops import _build
-
     if out is None:
         out = tuple(torch.empty(q.shape, dtype=q.dtype, device=q.device) for _ in range(2))
     dk, dv = out
     _check_bwd(q, k, v, bias, do, lse, delta, [("dk", dk), ("dv", dv)])
     b, t, h, d = q.shape
-    lib = _build.library()
-    fn = lib.mt_flash_bwd_dkv if q.dtype == torch.bfloat16 else lib.mt_flash_bwd_dkv_f32
+    fn = _entry("mt_flash_bwd_dkv", q.dtype)
     with torch.cuda.device(q.device):
         rc = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias), do.data_ptr(),

@@ -268,6 +268,8 @@ def attn_sublayer_bwd_cuda(
 
     _check_attn_inputs(x, ln_scale, ln_bias, qkv_w, qkv_b, proj_w, bias, num_heads)
     b, t, d = x.shape
+    if d % 128:  # the wgmma GEMM's 128-wide output tiles and 64-deep slabs
+        raise ValueError(f"the backward kernel takes D % 128 == 0, got D={d}")
     dev, bf, f32 = x.device, torch.bfloat16, torch.float32
     _check("g", g, bf, (b, t, d), dev)
     lib = _build.library()

@@ -210,3 +210,37 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="share shape and dtype"):
         fa.flash_attention(q, q[:, :4], q)
     assert fa.launch_counts() == {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+
+
+@pytest.mark.parametrize("dtype, suffix", [(torch.bfloat16, ""), (torch.float32, "_f32")])
+def test_each_wrapper_takes_its_route_by_dtype(monkeypatch, dtype, suffix):
+    """bf16 inputs launch the wgmma kernels (mt_flash_fwd, mt_flash_bwd_dq,
+    mt_flash_bwd_dkv), fp32 inputs the FMA kernels (mt_flash_fwd_f32 and
+    the two *_f32 backward entries): the wrappers' dispatch, with a stand-in
+    for the built library and the card's stream."""
+    import contextlib
+    import types
+
+    from metatransformer_tpu_torch.ops import _build
+
+    called = []
+
+    class Library:
+        def __getattr__(self, name):
+            return lambda *args: called.append(name) or 0
+
+    monkeypatch.setattr(_build, "library", Library)
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(
+        torch.cuda, "current_stream", lambda: types.SimpleNamespace(cuda_stream=0))
+    q, k, v, do = (torch.zeros(1, 8, 2, 64, dtype=dtype) for _ in range(4))
+    try:
+        o, lse = fa.flash_fwd_cuda(q, k, v, None, 0.125)
+        delta = torch.zeros(1, 2, 8)
+        fa.flash_bwd_dq_cuda(q, k, v, None, do, lse, delta, 0.125)
+        fa.flash_bwd_dkv_cuda(q, k, v, None, do, lse, delta, 0.125)
+        assert o.dtype == dtype and lse.dtype == torch.float32
+        assert called == [n + suffix for n in ("mt_flash_fwd", "mt_flash_bwd_dq",
+                                                "mt_flash_bwd_dkv")]
+    finally:
+        fa.reset_launch_counts()

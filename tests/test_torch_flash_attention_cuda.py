@@ -119,6 +119,42 @@ def test_flash_kernels_match_plain(cuda_device, b, t, h, d, dtype, masked):
         assert torch.isfinite(got.float()).all()
 
 
+# The bf16 cases of chip_smoke.py's FLASH_CASES (b, t, h, d, masked): the
+# video path's T = 1568, the segmenter's 513, the edges of the 128-query
+# blocks and 64-key tiles (127, 128, 129, 257), head_dim 32 and 128; masked
+# means a ragged sample 0 and a fully masked sample 1.
+FORWARD_CASES = [
+    (1, 1568, 12, 64, False), (1, 1568, 12, 64, True), (8, 1568, 12, 64, False),
+    (8, 1568, 12, 64, True), (3, 1568, 12, 64, True),
+    (2, 512, 4, 32, True), (2, 577, 4, 32, False), (2, 512, 2, 128, False),
+    (2, 577, 2, 128, True), (1, 513, 12, 64, False), (8, 513, 12, 64, False),
+    (8, 513, 12, 64, True), (2, 513, 4, 32, True), (2, 513, 4, 128, True),
+    (2, 127, 4, 64, False), (2, 127, 4, 64, True), (2, 128, 4, 64, False),
+    (2, 128, 4, 64, True), (2, 129, 4, 64, False), (2, 129, 4, 64, True),
+    (2, 257, 4, 64, False), (2, 257, 4, 64, True),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b, t, h, d, masked", FORWARD_CASES)
+def test_bf16_forward_matches_plain_and_repeats(cuda_device, b, t, h, d, masked):
+    """The bf16 forward kernel vs the plain version in fp32 from the same
+    inputs: o within the relative bound, lse within LSE_TOL on samples with a
+    kept key, every value finite, and a second launch bit-equal."""
+    q, k, v, bias, _ = _inputs(b, t, h, d, torch.bfloat16, cuda_device, seed=b + t + d,
+                               masked=masked)
+    scale = d**-0.5
+    o, lse = fa.flash_fwd_cuda(q, k, v, bias, scale)
+    o2, lse2 = fa.flash_fwd_cuda(q, k, v, bias, scale)
+    torch.cuda.synchronize()
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    assert torch.isfinite(o.float()).all() and torch.isfinite(lse).all()
+    want_o, want_lse = fa.flash_attention_plain(q.float(), k.float(), v.float(), bias, scale)
+    live = [i for i in range(b) if not (masked and i == 1)]
+    assert _rel_err(o[live], want_o[live]) <= REL_TOL[torch.bfloat16]
+    torch.testing.assert_close(lse[live], want_lse[live], rtol=LSE_TOL, atol=LSE_TOL)
+
+
 @pytest.mark.cuda
 def test_outputs_land_in_strided_buffers(cuda_device):
     """dq, dk, dv written into views of one [B, T, 3, H, d] buffer equal the

@@ -165,6 +165,16 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
         _build.build()
 
 
+def test_build_keys_every_file_of_csrc():
+    """Every source under csrc/ is built into a library of its own, and every
+    header is hashed into each library's key, so no file there escapes the
+    build or its key."""
+    names = {p.name for p in _build._CSRC.iterdir()}
+    assert {p.name for p in _build._SOURCES} == {n for n in names if n.endswith(".cu")}
+    assert {p.name for p in _build._HEADERS} == {n for n in names if n.endswith(".cuh")}
+    assert all(n.endswith((".cu", ".cuh")) for n in names)
+
+
 @pytest.mark.parametrize(
     "t, d, h", [(t, d, h) for t in (1, 17, 197, 456, 457, 512, 513, 1568)
                 for d, h in ((128, 2), (768, 12), (768, 32), (1024, 16), (96, 3))]

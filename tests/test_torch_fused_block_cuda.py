@@ -88,7 +88,9 @@ def test_mlp_kernel_matches_plain(cuda_device, b, t):
 @pytest.mark.parametrize(
     "b, t, d, h, masked",
     [(3, 197, 768, 12, False), (3, 197, 768, 12, True), (2, 100, 256, 8, False),
-     (2, 300, 256, 2, True), (4, 257, 768, 12, False), (4, 257, 768, 12, True)],
+     (2, 300, 256, 2, True), (4, 257, 768, 12, False), (4, 257, 768, 12, True),
+     # ViT-L14's shapes: D = 1024, 16 heads of 64, T = 257
+     (2, 257, 1024, 16, False), (2, 257, 1024, 16, True)],
 )
 def test_attn_bwd_kernel_matches_plain(cuda_device, b, t, d, h, masked):
     """All six outputs of the backward kernel vs its plain version in fp32
@@ -117,6 +119,50 @@ def test_attn_bwd_kernel_matches_plain(cuda_device, b, t, d, h, masked):
     for a, a2, w in zip(got, again, want):
         assert torch.equal(a, a2)
         assert _max_err(a, w) <= 0.02 * w.abs().max().item()
+
+
+# (M, N, K, trans_b, epilogue) of the backward's three products at ragged M
+# (3 x 197 and 2 x 257 rows): the QKV recompute (EPI_BIAS, weight [K, N] read
+# MN-major), g Wproj^T (EPI_NONE) and dqkv Wqkv^T (EPI_NONE_F32), both [N, K]
+# read K-major; ViT-B16's widths and ViT-L14's.
+EPI_BIAS, EPI_NONE, EPI_NONE_F32 = 0, 3, 4
+GEMM_CASES = [
+    (591, 2304, 768, False, EPI_BIAS), (591, 768, 768, True, EPI_NONE),
+    (591, 768, 2304, True, EPI_NONE_F32), (514, 3072, 1024, False, EPI_BIAS),
+    (514, 1024, 1024, True, EPI_NONE), (514, 1024, 3072, True, EPI_NONE_F32),
+    (70, 128, 64, False, EPI_BIAS), (70, 128, 64, True, EPI_NONE_F32),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m, n, k, trans_b, epi", GEMM_CASES)
+def test_wgmma_gemm_matches_matmul(cuda_device, m, n, k, trans_b, epi):
+    """The backward's GEMM alone vs torch.matmul in fp32 over the same bf16
+    operands; the bias is added in fp32 before the one rounding. fp32 out:
+    only the order of summation differs (relative 1e-4 of the largest
+    value); bf16 out: one rounding, 2**-8 relative, plus that."""
+    import ctypes
+
+    from metatransformer_tpu_torch.ops import _build
+
+    rng = np.random.default_rng(m + n + k)
+    bf = torch.bfloat16
+    a = torch.tensor(rng.standard_normal((m, k)).astype(np.float32)).to(cuda_device, bf)
+    w = torch.tensor((rng.standard_normal((n, k) if trans_b else (k, n)) * k**-0.5)
+                     .astype(np.float32)).to(cuda_device, bf)
+    bias = torch.tensor(rng.standard_normal(n).astype(np.float32)).to(cuda_device, bf)
+    out = torch.full((m, n), float("nan"), device=cuda_device,
+                     dtype=torch.float32 if epi == EPI_NONE_F32 else bf)
+    rc = _build.library().mt_gemm_sm90(
+        a.data_ptr(), w.data_ptr(), bias.data_ptr(), out.data_ptr(), m, n, k, int(trans_b),
+        epi, torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert rc == 0
+    want = a.float() @ (w.float().t() if trans_b else w.float())
+    if epi == EPI_BIAS:
+        want = want + bias.float()
+    tol = 1e-4 if epi == EPI_NONE_F32 else 2.0**-8 + 1e-4
+    assert _max_err(out, want) <= tol * want.abs().max().item()
 
 
 @pytest.mark.cuda
