@@ -2,12 +2,13 @@
 serving path, the ViT-B16 image training step, the ViT-B16 video classifier
 (16 x 224^2 clip, 1568 tokens; served and trained, frozen-encoder and full
 fine-tune) and the ViT-B16 point-cloud models (classifier served and
-trained, segmenter served, masked point ViT trained) on one NVIDIA GPU
-through the hand-written kernels.
+trained, segmenter served, masked point ViT trained) and a whole ViT-L14
+image classifier (served) on one NVIDIA GPU through the hand-written
+kernels.
 
     python3 chip_smoke.py [--seed N] [--profile]
     python3 chip_smoke.py --bwd-times      # only the flash backward and video-step times
-    python3 chip_smoke.py --kernel-times   # only #3, #4 and the steps and forward they carry
+    python3 chip_smoke.py --kernel-times   # only #1-#4 and the forwards and steps they carry
 
 Phases (any failed check raises, so the process exits non-zero):
 
@@ -27,7 +28,10 @@ Phases (any failed check raises, so the process exits non-zero):
    run with the plain versions on the card;
 6. time each kernel (a loop of launches between two CUDA events, over the
    count; the median of one timed call beside it), its plain version and
-   the library composition of the same function, and the whole forward;
+   the library composition of the same function, the attention core of #1
+   alone, and the whole forward; then serve one uint8 batch of 8 through a
+   whole ViT-L14 classifier (24 blocks of 1024, patch 14, T = 257) the
+   same way, launches and logits held, and time its forward;
 7. train: for each track build the full-width model through
    ``image_classifier.init`` and ``Trainer`` (no device named: both land on
    the card), take 6 AdamW steps on one fixed batch of 128, count the kernel
@@ -237,8 +241,9 @@ def phase_build():
 
     names = {p.name for p in _build._SOURCES}
     wanted = re.compile(r"(flash_fwd_wgmma|flash_bwd_dq_wgmma|flash_bwd_dkv_wgmma|attn_bwd_q|"
-                        r"attn_bwd_kv|gemm_sm90)I(\w+?)EEv")
-    for source in ("flash_attention_fwd.cu", "flash_attention_bwd.cu", "fused_block_bwd.cu"):
+                        r"attn_bwd_kv|attn_core|gemm_sm90)I(\w+?)EEv")
+    for source in ("fused_block.cu", "flash_attention_fwd.cu", "flash_attention_bwd.cu",
+                   "fused_block_bwd.cu"):
         if source not in names:  # an older checkout
             continue
         kernel = None
@@ -505,22 +510,77 @@ def phase_serve(seed: int, dev):
     _check_launches_per_request(
         per_request, {"attn_sublayer": depth, "mlp_sublayer": depth}, "image serve")
 
-    # The same model with the plain versions on the card, request by request.
+    _check_answers(model, requests, answers, cfg.num_classes, dev)
+    return model, launches
+
+
+def _check_answers(model, requests, answers, classes: int, dev, what: str = ""):
+    """Answer the requests again with the plain versions on the card and
+    hold the kernels' logits to them at the serving tolerance."""
     with _plain_versions():
         want = _serve(model, requests, dev)
     for (logits, top5), (ref, ref_top5), images in zip(answers, want, requests):
         b = images.shape[0]
-        if logits.shape != (b, cfg.num_classes) or top5.shape != (b, 5):
-            raise AssertionError(f"b={b}: logits {tuple(logits.shape)}")
+        if logits.shape != (b, classes) or top5.shape != (b, 5):
+            raise AssertionError(f"{what}b={b}: logits {tuple(logits.shape)}")
         if not torch.isfinite(logits).all():
-            raise AssertionError(f"b={b}: non-finite logits")
+            raise AssertionError(f"{what}b={b}: non-finite logits")
         err = (logits - ref).abs().max().item()
         top1 = (top5[:, 0] == ref_top5[:, 0]).float().mean().item()
-        print(f"request b={b}: logits {tuple(logits.shape)}, max |kernel - plain| "
+        print(f"{what}request b={b}: logits {tuple(logits.shape)}, max |kernel - plain| "
               f"{err:.6g}, top-1 agreement {top1:.4f}, first top-5 "
               f"{top5[0].tolist()}", flush=True)
         torch.testing.assert_close(logits, ref, atol=LOGIT_ATOL, rtol=LOGIT_RTOL)
-    return model, launches
+
+
+def _large_cfg():
+    """ViT-L14 (enc.LARGE: 24 blocks of 1024, 16 heads of 64) at patch 14
+    on 224^2 (T = 257), 1000 classes."""
+    from metatransformer_tpu_torch.core import encoder as enc
+    from metatransformer_tpu_torch.models import image_classifier as ic
+    from metatransformer_tpu_torch.tokenizers import image as tok
+
+    cfg = ic.ImageClassifierConfig(
+        tokenizer=tok.ImageTokenizerConfig(224, 14, 3, LARGE_D), encoder=enc.LARGE,
+        num_classes=1000)
+    if cfg.tokenizer.num_patches + 1 != LARGE_T or cfg.encoder.dim != LARGE_D:
+        raise AssertionError("ViT-L14 geometry does not give 257 tokens of 1024")
+    return cfg
+
+
+def phase_large_serve(seed: int, dev) -> dict:
+    """A whole ViT-L14 image classifier (seeded random weights, no depth
+    cut) serves one uint8 request of b = LARGE_BATCH: 24 launches of each
+    fused sublayer, logits held against the same model on the plain
+    versions on the card; then its forward time."""
+    from metatransformer_tpu_torch import ops
+    from metatransformer_tpu_torch.core import encoder as enc
+    from metatransformer_tpu_torch.models import image_classifier as ic
+
+    cfg = _large_cfg()
+    model = ic.ImageClassifier(cfg, ic.init(cfg, torch.Generator().manual_seed(seed)),
+                               precision=enc.BF16)
+    if next(model.buffers()).device.type != "cuda":
+        raise AssertionError("the ViT-L14 model did not land on the card")
+    requests = [torch.randint(0, 256, (LARGE_BATCH, 224, 224, 3), dtype=torch.uint8,
+                              generator=torch.Generator().manual_seed(seed + 1))]
+    depth = cfg.encoder.depth
+    ops.reset_launch_counts()
+    answers = _serve(model, requests, dev)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    print(f"L14 served 1 request, kernel launches {launches}", flush=True)
+    _check_launches_per_request(
+        [launches], {"attn_sublayer": depth, "mlp_sublayer": depth}, "L14 serve")
+    _check_answers(model, requests, answers, cfg.num_classes, dev, "L14 ")
+    images = requests[0].to(dev)
+    with torch.no_grad():
+        ms = _median_ms(lambda: model(images))
+    print(f"L14 forward b={LARGE_BATCH}: {ms:.4f} ms, {LARGE_BATCH * 1000.0 / ms:.2f} seq/s "
+          f"(median of {TIMING_REPS}, uint8 on the card -> logits)", flush=True)
+    del model
+    torch.cuda.empty_cache()
+    return launches
 
 
 # --------------------------------------------------------------------------
@@ -802,9 +862,37 @@ def _fused_kernel_times(kind, b, seed, dev, t=T, d=D, heads=HEADS, mlp=MLP,
             "library_composition_ms": lib_ms, **bound}
 
 
+def _attn_core_times(b: int, seed: int, dev, t: int = T, d: int = D,
+                     heads: int = HEADS) -> dict:
+    """The attention core of kernel #1 alone (``mt_attn_core``, dense) by the
+    launch loop, and its bound: S and P.V once each (the kernel runs S
+    twice) over the QKV slab in and the output out."""
+    from metatransformer_tpu_torch.ops import _build
+
+    lib = _build.library()
+    qkv = torch.randn(b, t, 3 * d, generator=torch.Generator().manual_seed(seed)).to(
+        dev, torch.bfloat16)
+    o = torch.empty(b, t, d, device=dev, dtype=torch.bfloat16)
+    stream = torch.cuda.current_stream().cuda_stream
+    launch = lambda: lib.mt_attn_core(qkv.data_ptr(), None, o.data_ptr(), b, t, d, heads,
+                                      stream)
+    if launch() != 0:
+        raise AssertionError("mt_attn_core did not launch")
+    ops, nbytes = 4 * b * t * t * d, 2 * 4 * b * t * d
+    t_ops, t_bytes = ops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return {"ms": _loop_ms(launch), "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "gflop": ops / 1e9, "mbytes": nbytes / 1e6}
+
+
 def phase_times(model, seed: int, dev) -> dict:
     times = {}
     b = 128
+    row = _attn_core_times(b, seed, dev)
+    print(f"attention core of attn_sublayer b={b}: {row['ms']:.4f} ms by a loop of "
+          f"{TIMING_REPS} launches, bound {row['bound_ms']:.4f} ms by {row['bound_by']} "
+          f"({row['gflop']:.2f} GFLOP, {row['mbytes']:.1f} MB; "
+          f"{100 * row['bound_ms'] / row['ms']:.1f}% of the bound's rate)", flush=True)
     for kind in FUSED_KERNELS:
         row = _fused_kernel_times(kind, b, seed, dev)
         times[kind] = {k: row[k] for k in ("ms", "ms_single_call", "plain_ms",
@@ -1386,20 +1474,45 @@ def phase_bwd_times(seed: int, dev) -> dict:
 
 
 def phase_kernel_times(seed: int, dev, profile: bool = False) -> dict:
-    """Kernels #4 (b = 8, 12 heads, T = 1568, head_dim 64, bf16, dense) and
-    #3 (b = 128, T = 197) by the launch loop, each beside its library
-    yardstick (scaled_dot_product_attention; the composition's backward),
-    then the steps and the forward they carry: one image step of each track
-    at b = 128, the video forward at b = 8 and one video step of each track
-    at b = 8. Only the port's entry points that every version since the
-    video classifier has, so the same script times an older checkout of the package
-    (``--kernel-times``); with ``profile``, also device time by kernel of the
-    full-track image step."""
+    """Kernels #1, #2 and #3 (b = 128, T = 197) and #4 (b = 8, 12 heads,
+    T = 1568, head_dim 64, bf16, dense) by the launch loop, each beside its
+    library yardstick (the composition; its backward; scaled_dot_product_
+    attention), then the forwards and steps they carry: the image forward at
+    b = 128, the point forward at b = 64, one image step of each track at
+    b = 128, the video forward at b = 8 and one video step of each track at
+    b = 8. Only the port's entry points that every version since the point
+    clouds have, so the same script times an older checkout of the package
+    (``--kernel-times``); with ``profile``, also device time by kernel of
+    the image forward at b = 128 and the full-track image step."""
     from metatransformer_tpu_torch.core import encoder as enc
+    from metatransformer_tpu_torch.models import image_classifier as ic
+    from metatransformer_tpu_torch.models import point_classifier as pc
     from metatransformer_tpu_torch.models import video_classifier as vc
     from metatransformer_tpu_torch.ops import flash_attention as fa
 
     out = {}
+    for kind in ("attn_sublayer", "mlp_sublayer"):
+        row = _fused_kernel_times(kind, TRAIN_BATCH, seed, dev, plain_too=False)
+        out[kind] = row["ms"]
+        out[f"{kind}_library"] = row["library_composition_ms"]
+        torch.cuda.empty_cache()
+    cfg = ic.ImageClassifierConfig()
+    model = ic.ImageClassifier(cfg, ic.init(cfg, torch.Generator().manual_seed(seed)),
+                               precision=enc.BF16)
+    images = torch.randint(0, 256, (TRAIN_BATCH, 224, 224, 3), dtype=torch.uint8,
+                           generator=torch.Generator().manual_seed(seed + 2)).to(dev)
+    with torch.no_grad():
+        out["image_forward_b128"] = _median_ms(lambda: model(images))
+        if profile:
+            _profile_step(lambda: model(images), "image forward b=128")
+    cfg = _point_cfg()
+    model = pc.PointClassifier(cfg, pc.init(cfg, torch.Generator().manual_seed(seed)),
+                               precision=enc.BF16)
+    clouds = _clouds(seed + 7, POINT_SERVE_BATCHES[-1], POINT_N).to(dev)
+    with torch.no_grad():
+        out["point_forward_b64"] = _median_ms(lambda: model(clouds))
+    del model, images, clouds
+    torch.cuda.empty_cache()
     q, k, v, _, _ = _flash_inputs(VIDEO_TRAIN_BATCH, HEADS, VT, HD, BF, False, seed, dev)
     scale = float(HD) ** -0.5
     with torch.no_grad():
@@ -1804,9 +1917,10 @@ def main() -> None:
                     help="only build and time the flash backward kernels and one step of "
                          "each video track, to compare checkouts in turns; prints no result")
     ap.add_argument("--kernel-times", action="store_true",
-                    help="only build and time kernels #3 and #4 beside their library calls, "
-                         "one image step of each track, the video forward and one video step "
-                         "of each track, to compare checkouts in turns; prints no result")
+                    help="only build and time kernels #1-#4 beside their library calls, "
+                         "the image and point forwards, one image step of each track, the "
+                         "video forward and one video step of each track, to compare "
+                         "checkouts in turns; prints no result")
     args = ap.parse_args()
 
     phase_device()
@@ -1823,6 +1937,7 @@ def main() -> None:
     model, serve_launches = phase_serve(args.seed, dev)
     times = phase_times(model, args.seed, dev)
     del model
+    large_launches = phase_large_serve(args.seed, dev)
     train_launches = phase_train(args.seed, dev)
     torch.cuda.empty_cache()
     phase_train_times(args.seed, dev, args.profile)
@@ -1851,6 +1966,7 @@ def main() -> None:
 
     by_path = {
         "serve": serve_launches,
+        "large_serve": large_launches,
         **{f"train_{k}": v for k, v in train_launches.items()},
         "video_serve": video_serve_launches,
         **{f"video_train_{k}": v for k, v in video_train_launches.items()},
@@ -1863,6 +1979,7 @@ def main() -> None:
     }
     on_path = {  # the kernels each path must have gone through
         "serve": ("attn_sublayer", "mlp_sublayer"),
+        "large_serve": ("attn_sublayer", "mlp_sublayer"),
         "train_frozen": FUSED_KERNELS, "train_full": FUSED_KERNELS,
         "video_serve": ("flash_fwd",),
         "video_train_frozen": FLASH_KERNELS, "video_train_full": FLASH_KERNELS,

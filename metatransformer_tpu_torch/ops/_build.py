@@ -42,6 +42,8 @@ _SOURCES = {
         "mt_attn_sublayer": [_vp] * 12 + [_int] * 4 + [_float, _vp],
         # x, ln_s, ln_b, w1, b1, w2, b2, xn, h, out, rows, D, F, eps, stream
         "mt_mlp_sublayer": [_vp] * 10 + [_int] * 3 + [_float, _vp],
+        # qkv, bias, o, B, T, D, H, stream: the attention core alone (card tests)
+        "mt_attn_core": [_vp] * 3 + [_int] * 4 + [_vp],
     },
     _CSRC / "fused_block_bwd.cu": {
         # x, g, ln_s, ln_b, wqkv, bqkv, wproj, bias, dx, dqkv, xn, o, dgamma,
@@ -49,8 +51,9 @@ _SOURCES = {
         # stream
         "mt_attn_sublayer_bwd": [_vp] * 20 + [_int] * 4 + [_float, _vp],
         "mt_ln_grad_chunks": [_int],
-        # A, B, bias, C, M, N, K, trans_b, epi, stream: the GEMM alone (card tests)
-        "mt_gemm_sm90": [_vp] * 4 + [_int] * 5 + [_vp],
+        # A, B, bias, res, C, M, N, K, trans_b, epi, stream: the GEMM alone (card
+        # tests)
+        "mt_gemm_sm90": [_vp] * 5 + [_int] * 5 + [_vp],
     },
     _CSRC / "flash_attention_fwd.cu": {
         # the bf16 forward on wgmma: q, k, v, bias, o, lse, B, T, H, hd, q/k/v

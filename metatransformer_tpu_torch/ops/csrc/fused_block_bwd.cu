@@ -91,29 +91,6 @@ struct AbCfg {
   static constexpr int ACC = HDP / 2;  // fp32 accumulator registers of a 64 x HDP product
 };
 
-// Rows t0 .. t0+AB_ROWS-1 of one head of q ([T, HD], `stride` apart), times
-// scale and rounded to bf16 (the reference's bf16(q * scale)), into a
-// swizzled tile by plain stores, and the same values into `qs_out` ([T, D]
-// rows of the head). Rows past T are zero.
-template <int HD>
-__device__ __forceinline__ void load_scaled_q(unsigned char* tile, const bf16* src,
-                                              size_t stride, bf16* qs_out, int D, int t0,
-                                              int T, float scale) {
-  constexpr int CH = HD / 8;
-  for (int c = threadIdx.x; c < AB_ROWS * CH; c += AB_THREADS) {
-    const int r = c / CH, ch = c % CH, t = t0 + r;
-    uint4 u = make_uint4(0, 0, 0, 0);
-    if (t < T) {
-      u = *reinterpret_cast<const uint4*>(src + (size_t)t * stride + ch * 8);
-      bf16* e = reinterpret_cast<bf16*>(&u);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) e[j] = f2b(b2f(e[j]) * scale);
-      *reinterpret_cast<uint4*>(qs_out + (size_t)t * D + ch * 8) = u;
-    }
-    *reinterpret_cast<uint4*>(tile + swz(AB_ROWS, r, ch)) = u;
-  }
-}
-
 // Store two rows of a 64 x HD accumulator (times mul, rounded to bf16) from
 // registers: row t_lo takes elements i % 4 < 2, row t_hi the others.
 template <int HD, int ACC>
@@ -164,8 +141,8 @@ attn_bwd_q(const bf16* __restrict__ qkv, const bf16* __restrict__ d_o,
   for (int s = 0; s < 2 * AB_STAGES; ++s)
     zero_pad<HD>(smem + 2 * C::RES_BYTES + s * C::TILE_BYTES, AB_TILE);
 
-  load_scaled_q<HD>(smem, base + h * HD, row_stride, qs + (size_t)b * T * D + h * HD, D, q0, T,
-                    scale);
+  load_scaled_q<HD, AB_ROWS, AB_THREADS>(smem, base + h * HD, row_stride,
+                                         qs + (size_t)b * T * D + h * HD, D, q0, T, scale);
   load_rows<HD>(dOs, AB_ROWS, do_head, D, q0, AB_ROWS, T);
   auto load_stage = [&](int s, int k0) {
     const uint32_t ks = tiles + 2 * s * C::TILE_BYTES;
@@ -626,22 +603,26 @@ const char* mt_error_string(int code) {
 // `partial` scratch as [mt_ln_grad_chunks(B*T), 2, D] fp32.
 int mt_ln_grad_chunks(int rows) { return (rows + LNG_ROWS - 1) / LNG_ROWS; }
 
-// The GEMM of gemm_sm90.cuh on its own, for the card tests, in the three
-// forms mt_attn_sublayer_bwd runs: C = epi(A @ B) with A [M, K] bf16 and B
-// [K, N] bf16 under EPI_BIAS (bias [N] bf16, C bf16), or B [N, K] (trans_b)
-// under EPI_NONE (C bf16) or EPI_NONE_F32 (C fp32).
-int mt_gemm_sm90(const void* A, const void* B, const void* bias, void* C, int M, int N, int K,
-                 int trans_b, int epi, void* stream) {
+// The GEMM of gemm_sm90.cuh on its own, for the card tests, in the five
+// forms the sublayers run: C = epi(A @ B) with A [M, K] bf16 and bias [N]
+// bf16; B [K, N] bf16 under EPI_BIAS, EPI_BIAS_GELU or EPI_BIAS_RESIDUAL
+// (res [M, N] bf16; C bf16), or B [N, K] (trans_b) under EPI_NONE (C bf16)
+// or EPI_NONE_F32 (C fp32).
+int mt_gemm_sm90(const void* A, const void* B, const void* bias, const void* res, void* C,
+                 int M, int N, int K, int trans_b, int epi, void* stream) {
   const bf16* a = static_cast<const bf16*>(A);
   const bf16* b = static_cast<const bf16*>(B);
   const bf16* bs = static_cast<const bf16*>(bias);
+  const bf16* r = static_cast<const bf16*>(res);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  // the three products of mt_attn_sublayer_bwd
   switch (epi * 2 + (trans_b ? 1 : 0)) {
-    case EPI_BIAS * 2: return launch_gemm_sm90<EPI_BIAS, false>(a, b, bs, C, M, N, K, st);
-    case EPI_NONE * 2 + 1: return launch_gemm_sm90<EPI_NONE, true>(a, b, bs, C, M, N, K, st);
+    case EPI_BIAS * 2: return launch_gemm_sm90<EPI_BIAS>(a, b, bs, r, C, M, N, K, st);
+    case EPI_BIAS_GELU * 2: return launch_gemm_sm90<EPI_BIAS_GELU>(a, b, bs, r, C, M, N, K, st);
+    case EPI_BIAS_RESIDUAL * 2:
+      return launch_gemm_sm90<EPI_BIAS_RESIDUAL>(a, b, bs, r, C, M, N, K, st);
+    case EPI_NONE * 2 + 1: return launch_gemm_sm90<EPI_NONE, true>(a, b, bs, r, C, M, N, K, st);
     case EPI_NONE_F32 * 2 + 1:
-      return launch_gemm_sm90<EPI_NONE_F32, true>(a, b, bs, C, M, N, K, st);
+      return launch_gemm_sm90<EPI_NONE_F32, true>(a, b, bs, r, C, M, N, K, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -671,10 +652,10 @@ int mt_attn_sublayer_bwd(const void* x, const void* g, const void* ln_s, const v
                              eps, st);
   if (rc) return rc;
   rc = launch_gemm_sm90<EPI_BIAS>(static_cast<const bf16*>(xn), wq,
-                                  static_cast<const bf16*>(bqkv), qkv, M, 3 * D, D, st);
+                                  static_cast<const bf16*>(bqkv), nullptr, qkv, M, 3 * D, D, st);
   if (rc) return rc;
-  rc = launch_gemm_sm90<EPI_NONE, true>(gb, static_cast<const bf16*>(wproj), nullptr, d_o, M,
-                                        D, D, st);
+  rc = launch_gemm_sm90<EPI_NONE, true>(gb, static_cast<const bf16*>(wproj), nullptr, nullptr,
+                                        d_o, M, D, D, st);
   if (rc) return rc;
   // q * scale passes from attn_bwd_q to attn_bwd_kv through the dxn scratch
   // (as bf16 [B*T, D]); the dxn GEMM below overwrites it.
@@ -683,8 +664,8 @@ int mt_attn_sublayer_bwd(const void* x, const void* g, const void* ln_s, const v
                        static_cast<bf16*>(dqkv), static_cast<float*>(stats),
                        static_cast<bf16*>(dxn), B, T, D, H, st);
   if (rc) return rc;
-  rc = launch_gemm_sm90<EPI_NONE_F32, true>(static_cast<const bf16*>(dqkv), wq, nullptr, dxn,
-                                            M, D, 3 * D, st);
+  rc = launch_gemm_sm90<EPI_NONE_F32, true>(static_cast<const bf16*>(dqkv), wq, nullptr,
+                                            nullptr, dxn, M, D, 3 * D, st);
   if (rc) return rc;
   const int ln_blocks = (M + LN_ROWS_PER_BLOCK - 1) / LN_ROWS_PER_BLOCK;
   ln_bwd_rows<<<ln_blocks, 32 * LN_ROWS_PER_BLOCK, 0, st>>>(

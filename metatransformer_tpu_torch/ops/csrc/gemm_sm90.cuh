@@ -1,16 +1,17 @@
 // GEMM on Hopper (sm_90a) wgmma: C[M, N] = epilogue(A[M, K] @ B), bf16
-// inputs, fp32 accumulation. Used by fused_block_bwd.cu for its three
-// products (the QKV recompute, g Wproj^T and dqkv Wqkv^T); the forwards of
-// fused_block.cu stay on gemm_bf16 of common.cuh for now.
+// inputs, fp32 accumulation. It runs every product of the fused sublayers:
+// the forwards' four (fused_block.cu: QKV, proj + residual, fc1 + GELU,
+// fc2 + residual) and the attention backward's three (fused_block_bwd.cu:
+// the QKV recompute, g Wproj^T and dqkv Wqkv^T).
 //
 // A is row-major [M, K]: K-major. B is either the untransposed weight
 // [K, N] (N contiguous), read MN-major through the transpose bit, or, with
 // TRANS_B, a row-major [N, K] weight, which is the natural K-major B of
 // A @ W^T. No operand is copied or transposed.
 //
-// What bounds it: at the attention backward's shapes (M = B*T = 25216,
-// N and K in 768..2304) 2 M N K operations over 2 (M K + K N + M N) bytes,
-// far above the H100's ~295 operations a byte: tensor-core operations.
+// What bounds it: at the sublayers' shapes (M = B*T = 25216, N and K in
+// 768..3072) 2 M N K operations over 2 (M K + K N + M N) bytes, far above
+// the H100's ~295 operations a byte: tensor-core operations.
 //
 // Design.
 //  * A block owns a 128 x 128 output tile with two consumer warpgroups, 64
@@ -25,11 +26,13 @@
 //    TRANS_B weight as [128 rows, 64] K-major tiles, an untransposed weight
 //    as [64 rows of K, 128] in two 64-column blocks.
 //  * Ragged M: rows past M are zero-filled on load and not stored. N must
-//    be a multiple of 128 and K of 64 (the wrapper checks).
+//    be a multiple of 128 and K of 64 (the wrappers check).
 //  * The epilogue runs in the accumulator registers: a thread holds pairs
-//    of neighbouring columns of two rows and stores them as bf16 pairs
-//    (with the bias added in fp32 for EPI_BIAS) or fp32 pairs. No scratch
-//    tile.
+//    of neighbouring columns of two rows and stores them as bf16 pairs (or
+//    fp32 pairs), with the cast points of the reference's sublayers: the
+//    bias added in fp32, then bf16(gelu_erf(acc + bias)) for EPI_BIAS_GELU
+//    and bf16(res + bf16(acc + bias)) for EPI_BIAS_RESIDUAL, the residual
+//    read as bf16 pairs beside the stores. No scratch tile.
 
 #pragma once
 
@@ -44,11 +47,15 @@ constexpr int G9_A_STAGE = G9_BM * G9_BK * 2;  // bytes
 constexpr int G9_B_STAGE = G9_BN * G9_BK * 2;
 constexpr int G9_BYTES = G9_STAGES * (G9_A_STAGE + G9_B_STAGE) + 1024;
 
+__device__ __forceinline__ float gelu_erf(float v) {
+  return 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
+}
+
 template <int EPI, bool TRANS_B>
 __global__ void __launch_bounds__(G9_THREADS, 1)
 gemm_sm90(const bf16* __restrict__ A, const bf16* __restrict__ B,
-          const bf16* __restrict__ bias, void* __restrict__ Cv, int M, int N, int K) {
-  static_assert(EPI == EPI_BIAS || EPI == EPI_NONE || EPI == EPI_NONE_F32, "epilogue");
+          const bf16* __restrict__ bias, const bf16* __restrict__ res, void* __restrict__ Cv,
+          int M, int N, int K) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   const uint32_t As = smem_u32(smem), Bs = As + G9_STAGES * G9_A_STAGE;
@@ -130,27 +137,36 @@ gemm_sm90(const bf16* __restrict__ A, const bf16* __restrict__ B,
         *reinterpret_cast<float2*>(static_cast<float*>(Cv) + (size_t)row * N + c) =
             make_float2(v0, v1);
       } else {
-        if constexpr (EPI == EPI_BIAS) {
+        if constexpr (EPI != EPI_NONE) {
           v0 += b2f(bias[c]);
           v1 += b2f(bias[c + 1]);
         }
-        *reinterpret_cast<uint32_t*>(static_cast<bf16*>(Cv) + (size_t)row * N + c) =
-            pack_bf16(v0, v1);
+        if constexpr (EPI == EPI_BIAS_GELU) {
+          v0 = gelu_erf(v0);
+          v1 = gelu_erf(v1);
+        }
+        __nv_bfloat162 y = __floats2bfloat162_rn(v0, v1);
+        if constexpr (EPI == EPI_BIAS_RESIDUAL) {
+          const __nv_bfloat162 r =
+              *reinterpret_cast<const __nv_bfloat162*>(res + (size_t)row * N + c);
+          y = __floats2bfloat162_rn(b2f(r.x) + b2f(y.x), b2f(r.y) + b2f(y.y));
+        }
+        *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(Cv) + (size_t)row * N + c) = y;
       }
     }
   }
 }
 
 template <int EPI, bool TRANS_B = false>
-int launch_gemm_sm90(const bf16* A, const bf16* B, const bf16* bias, void* C, int M, int N,
-                     int K, cudaStream_t st) {
+int launch_gemm_sm90(const bf16* A, const bf16* B, const bf16* bias, const bf16* res, void* C,
+                     int M, int N, int K, cudaStream_t st) {
   if (M <= 0 || N % G9_BN || K % G9_BK || K <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(gemm_sm90<EPI, TRANS_B>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, G9_BYTES);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(N / G9_BN, (M + G9_BM - 1) / G9_BM);
-  gemm_sm90<EPI, TRANS_B><<<grid, G9_THREADS, G9_BYTES, st>>>(A, B, bias, C, M, N, K);
+  gemm_sm90<EPI, TRANS_B><<<grid, G9_THREADS, G9_BYTES, st>>>(A, B, bias, res, C, M, N, K);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,8 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the wgmma kernels of this
-// package: flash_attention_fwd.cu, flash_attention_bwd.cu, fused_block_bwd.cu
-// and gemm_sm90.cuh. Each .cu file that includes this header is compiled on
-// its own into its own shared library, so everything here lives in an
-// anonymous namespace.
+// package: flash_attention_fwd.cu, flash_attention_bwd.cu, fused_block.cu,
+// fused_block_bwd.cu and gemm_sm90.cuh. Each .cu file that includes this
+// header is compiled on its own into its own shared library, so everything
+// here lives in an anonymous namespace.
 //
 // Shared tiles use the 128-byte swizzle that the wgmma descriptors name: a
 // [rows, d] bf16 tile is stored as 64-column blocks of 128-byte rows, the
@@ -61,6 +61,29 @@ __device__ __forceinline__ void load_rows(uint32_t tile, int rows, const bf16* s
     const bool ok = t < Tlen;
     const bf16* row = src + (long long)(ok ? t : 0) * row_stride;
     cp_async16_s(tile + swz(rows, r, ch), row + ch * 8, ok);
+  }
+}
+
+// Rows t0 .. t0+ROWS-1 of one head of q ([T, HD], `stride` apart), times
+// scale and rounded to bf16 (the reference's bf16(q * scale)), into a
+// swizzled tile by plain stores, by THREADS threads; where qs_out is given,
+// the same values into it ([T, D] rows of the head). Rows past T are zero.
+template <int HD, int ROWS, int THREADS>
+__device__ __forceinline__ void load_scaled_q(unsigned char* tile, const bf16* src,
+                                              size_t stride, bf16* qs_out, int D, int t0,
+                                              int T, float scale) {
+  constexpr int CH = HD / 8;
+  for (int c = threadIdx.x; c < ROWS * CH; c += THREADS) {
+    const int r = c / CH, ch = c % CH, t = t0 + r;
+    uint4 u = make_uint4(0, 0, 0, 0);
+    if (t < T) {
+      u = *reinterpret_cast<const uint4*>(src + (size_t)t * stride + ch * 8);
+      bf16* e = reinterpret_cast<bf16*>(&u);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) e[j] = f2b(b2f(e[j]) * scale);
+      if (qs_out) *reinterpret_cast<uint4*>(qs_out + (size_t)t * D + ch * 8) = u;
+    }
+    *reinterpret_cast<uint4*>(tile + swz(ROWS, r, ch)) = u;
   }
 }
 

@@ -92,12 +92,23 @@ def attn_sublayer_plain(
 
     ``bias`` is the [B, T] fp32 additive key mask (0 / NEG_INF) or None.
     """
-    b, t, d = x.shape
-    hd = d // num_heads
     dt = x.dtype
     xn = _layer_norm(x, ln_scale, ln_bias, ln_eps)
-    qkv = _linear_f32(xn, qkv_w, qkv_b).to(dt).reshape(b, t, 3, num_heads, hd)
-    q, k, v = qkv.unbind(2)  # [B, T, H, hd]
+    qkv = _linear_f32(xn, qkv_w, qkv_b).to(dt)
+    o = attention_core_plain(qkv, bias, num_heads=num_heads)
+    return x + _linear_f32(o, proj_w, proj_b).to(dt)
+
+
+def attention_core_plain(qkv, bias, *, num_heads):
+    """Plain version of the sublayer's attention core: [B, T, 3D] QKV
+    (columns (q|k|v) x heads) -> [B, T, D] in ``qkv.dtype``. q is scaled in
+    fp32 and rounded, the row max is global, P is rounded before P.V and
+    the output is normalised after it."""
+    b, t, d3 = qkv.shape
+    d = d3 // 3
+    hd = d // num_heads
+    dt = qkv.dtype
+    q, k, v = qkv.reshape(b, t, 3, num_heads, hd).unbind(2)  # [B, T, H, hd]
     q = (q.float() * (float(hd) ** -0.5)).to(dt)
     s = torch.einsum("bthd,bshd->bhts", q.float(), k.float())
     if bias is not None:
@@ -105,8 +116,7 @@ def attn_sublayer_plain(
     p = torch.exp(s - s.amax(dim=-1, keepdim=True))
     l = p.sum(dim=-1, keepdim=True)
     o = torch.einsum("bhts,bshd->bhtd", p.to(dt).float(), v.float())
-    o = (o / l).to(dt).transpose(1, 2).reshape(b, t, d)
-    return x + _linear_f32(o, proj_w, proj_b).to(dt)
+    return (o / l).to(dt).transpose(1, 2).reshape(b, t, d)
 
 
 def mlp_sublayer_plain(x, ln_scale, ln_bias, fc1_w, fc1_b, fc2_w, fc2_b, *, ln_eps):
@@ -193,9 +203,14 @@ def _check(name, t, dtype, shape, device):
 
 
 def _check_gemm_dims(k: int, n: int):
-    # The GEMM loads 32-deep K slabs and 8-wide (16-byte) column chunks.
-    if k % 32 or n % 8:
-        raise ValueError(f"GEMM dims K={k}, N={n}: need K % 32 == 0, N % 8 == 0")
+    # The wgmma GEMM (csrc/gemm_sm90.cuh) runs 64-deep K slabs and 128-wide
+    # output tiles. No config loses the fused path by this: supported()
+    # already asks for D % 128 == 0, and every EncoderConfig the port builds
+    # leaves mlp_ratio at its default 4, so F = 4 D.
+    if k % 64 or n % 128:
+        raise ValueError(
+            f"GEMM dims K={k}, N={n}: the wgmma GEMM takes K % 64 == 0 and N % 128 == 0"
+        )
 
 
 def _raise_on(rc: int, what: str):
@@ -212,7 +227,8 @@ def _check_attn_inputs(x, ln_scale, ln_bias, qkv_w, qkv_b, proj_w, bias, num_hea
     b, t, d = x.shape
     if d % num_heads or d // num_heads not in (32, 64, 128):
         raise ValueError(f"head_dim {d}/{num_heads} not in (32, 64, 128)")
-    _check_gemm_dims(d, 3 * d)
+    _check_gemm_dims(d, 3 * d)  # QKV (and its recompute in the backward)
+    _check_gemm_dims(d, d)  # proj (g Wproj^T in the backward)
     dev, bf, f32 = x.device, torch.bfloat16, torch.float32
     _check("x", x, bf, (b, t, d), dev)
     _check("ln_scale", ln_scale, f32, (d,), dev)
@@ -228,8 +244,10 @@ def attn_sublayer_cuda(
     x, ln_scale, ln_bias, qkv_w, qkv_b, proj_w, proj_b, bias, *, num_heads, ln_eps
 ):
     """Launch the attention sublayer kernels (LayerNorm, QKV GEMM, attention
-    core, proj GEMM + residual). x, weights and matmul biases bf16; LN
-    params and the key bias fp32."""
+    core, proj GEMM + residual; every product on wgmma). x, weights and
+    matmul biases bf16; LN params and the key bias fp32. D must be a
+    multiple of 128 (the GEMM's tiles); anything else raises before a
+    launch."""
     from metatransformer_tpu_torch.ops import _build
 
     _check_attn_inputs(x, ln_scale, ln_bias, qkv_w, qkv_b, proj_w, bias, num_heads)
@@ -268,8 +286,6 @@ def attn_sublayer_bwd_cuda(
 
     _check_attn_inputs(x, ln_scale, ln_bias, qkv_w, qkv_b, proj_w, bias, num_heads)
     b, t, d = x.shape
-    if d % 128:  # the wgmma GEMM's 128-wide output tiles and 64-deep slabs
-        raise ValueError(f"the backward kernel takes D % 128 == 0, got D={d}")
     dev, bf, f32 = x.device, torch.bfloat16, torch.float32
     _check("g", g, bf, (b, t, d), dev)
     lib = _build.library()
@@ -305,8 +321,9 @@ attn_sublayer_bwd_cuda.launches = 0
 
 def mlp_sublayer_cuda(x, ln_scale, ln_bias, fc1_w, fc1_b, fc2_w, fc2_b, *, ln_eps):
     """Launch the MLP sublayer kernels (LayerNorm, fc1 GEMM + GELU, fc2 GEMM
-    + residual) on [..., D] rows. x, weights and biases bf16; LN params
-    fp32."""
+    + residual, both on wgmma) on [..., D] rows. x, weights and biases bf16;
+    LN params fp32. D and F must be multiples of 128 (the GEMM's tiles);
+    anything else raises before a launch."""
     from metatransformer_tpu_torch.ops import _build
 
     d = x.shape[-1]

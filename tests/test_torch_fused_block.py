@@ -155,6 +155,45 @@ def test_bwd_cuda_wrapper_checks_inputs_before_launch():
     assert fb.attn_sublayer_bwd_cuda.launches == before
 
 
+@pytest.mark.parametrize(
+    "kind, d, h",
+    [
+        ("mlp", 128, None),  # fc1 N = F = 448: N % 128
+        ("mlp", 96, None),  # fc1 K = D = 96: K % 64
+        ("mlp", 192, None),  # fc2 N = D = 192: N % 128
+        ("attn", 192, 3),  # proj N = D = 192 (head_dim 64)
+        ("attn", 96, 3),  # QKV K = D = 96 (head_dim 32)
+        ("attn_bwd", 192, 3),
+    ],
+)
+def test_cuda_wrappers_refuse_dims_the_gemm_cannot_take(monkeypatch, kind, d, h):
+    """The wgmma GEMM takes K % 64 == 0 and N % 128 == 0: each wrapper
+    raises before it builds or launches anything."""
+    monkeypatch.setattr(_build, "library", lambda: pytest.fail("built before the check"))
+    counts = fb.launch_counts()
+    if kind == "mlp":
+        f = 448 if d == 128 else 4 * d
+        rng = np.random.default_rng(d)
+        bf = lambda *s: torch.tensor(rng.standard_normal(s).astype(np.float32)).bfloat16()
+        with pytest.raises(ValueError, match=r"K % 64 == 0 and N % 128 == 0"):
+            fb.mlp_sublayer_cuda(
+                bf(1, 4, d), torch.ones(d), torch.zeros(d), bf(d, f), bf(f), bf(f, d), bf(d),
+                ln_eps=1e-5,
+            )
+    else:
+        x, lns, lnb, wqkv, bqkv, wproj, bproj = _bf16_attn_args(1, 4, d)
+        with pytest.raises(ValueError, match=r"K % 64 == 0 and N % 128 == 0"):
+            if kind == "attn":
+                fb.attn_sublayer_cuda(
+                    x, lns, lnb, wqkv, bqkv, wproj, bproj, None, num_heads=h, ln_eps=1e-5
+                )
+            else:
+                fb.attn_sublayer_bwd_cuda(
+                    x, x, lns, lnb, wqkv, bqkv, wproj, None, num_heads=h, ln_eps=1e-5
+                )
+    assert fb.launch_counts() == counts
+
+
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.setattr(
         _build, "library_paths", lambda: {_build._CSRC / "fused_block.cu": tmp_path / "missing.so"}

@@ -121,48 +121,109 @@ def test_attn_bwd_kernel_matches_plain(cuda_device, b, t, d, h, masked):
         assert _max_err(a, w) <= 0.02 * w.abs().max().item()
 
 
-# (M, N, K, trans_b, epilogue) of the backward's three products at ragged M
-# (3 x 197 and 2 x 257 rows): the QKV recompute (EPI_BIAS, weight [K, N] read
-# MN-major), g Wproj^T (EPI_NONE) and dqkv Wqkv^T (EPI_NONE_F32), both [N, K]
-# read K-major; ViT-B16's widths and ViT-L14's.
-EPI_BIAS, EPI_NONE, EPI_NONE_F32 = 0, 3, 4
+# (M, N, K, trans_b, epilogue) of the sublayers' products at ragged M (3 x 197
+# and 2 x 257 rows), at ViT-B16's widths and ViT-L14's: the forwards' QKV
+# (EPI_BIAS, also the backward's recompute), proj + residual and fc2 +
+# residual (EPI_BIAS_RESIDUAL) and fc1 + GELU (EPI_BIAS_GELU), every weight
+# [K, N] read MN-major; the backward's g Wproj^T (EPI_NONE) and dqkv Wqkv^T
+# (EPI_NONE_F32), both [N, K] read K-major.
+EPI_BIAS, EPI_BIAS_GELU, EPI_BIAS_RESIDUAL, EPI_NONE, EPI_NONE_F32 = 0, 1, 2, 3, 4
 GEMM_CASES = [
     (591, 2304, 768, False, EPI_BIAS), (591, 768, 768, True, EPI_NONE),
     (591, 768, 2304, True, EPI_NONE_F32), (514, 3072, 1024, False, EPI_BIAS),
     (514, 1024, 1024, True, EPI_NONE), (514, 1024, 3072, True, EPI_NONE_F32),
     (70, 128, 64, False, EPI_BIAS), (70, 128, 64, True, EPI_NONE_F32),
+    (591, 768, 768, False, EPI_BIAS_RESIDUAL), (591, 3072, 768, False, EPI_BIAS_GELU),
+    (591, 768, 3072, False, EPI_BIAS_RESIDUAL), (514, 1024, 1024, False, EPI_BIAS_RESIDUAL),
+    (514, 4096, 1024, False, EPI_BIAS_GELU), (514, 1024, 4096, False, EPI_BIAS_RESIDUAL),
 ]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("m, n, k, trans_b, epi", GEMM_CASES)
 def test_wgmma_gemm_matches_matmul(cuda_device, m, n, k, trans_b, epi):
-    """The backward's GEMM alone vs torch.matmul in fp32 over the same bf16
-    operands; the bias is added in fp32 before the one rounding. fp32 out:
-    only the order of summation differs (relative 1e-4 of the largest
-    value); bf16 out: one rounding, 2**-8 relative, plus that."""
-    import ctypes
-
+    """The sublayers' GEMM alone vs torch.matmul in fp32 over the same bf16
+    operands, with the bias added in fp32 and GELU and the residual applied
+    at the kernel's cast points: bf16(gelu(acc + bias)), bf16(res +
+    bf16(acc + bias)). fp32 out: only the order of summation differs
+    (relative 1e-4 of the largest value); bf16 out: one rounding, 2**-8
+    relative, plus that; with the residual, the inner rounding may also fall
+    the other way, one bf16 ulp (2**-7 relative) of the inner value."""
     from metatransformer_tpu_torch.ops import _build
 
-    rng = np.random.default_rng(m + n + k)
+    rng = np.random.default_rng(m + n + k + epi)
     bf = torch.bfloat16
     a = torch.tensor(rng.standard_normal((m, k)).astype(np.float32)).to(cuda_device, bf)
     w = torch.tensor((rng.standard_normal((n, k) if trans_b else (k, n)) * k**-0.5)
                      .astype(np.float32)).to(cuda_device, bf)
     bias = torch.tensor(rng.standard_normal(n).astype(np.float32)).to(cuda_device, bf)
+    res = torch.tensor(rng.standard_normal((m, n)).astype(np.float32)).to(cuda_device, bf)
     out = torch.full((m, n), float("nan"), device=cuda_device,
                      dtype=torch.float32 if epi == EPI_NONE_F32 else bf)
     rc = _build.library().mt_gemm_sm90(
-        a.data_ptr(), w.data_ptr(), bias.data_ptr(), out.data_ptr(), m, n, k, int(trans_b),
-        epi, torch.cuda.current_stream().cuda_stream)
+        a.data_ptr(), w.data_ptr(), bias.data_ptr(), res.data_ptr(), out.data_ptr(), m, n, k,
+        int(trans_b), epi, torch.cuda.current_stream().cuda_stream)
     torch.cuda.synchronize()
     assert rc == 0
     want = a.float() @ (w.float().t() if trans_b else w.float())
-    if epi == EPI_BIAS:
+    if epi in (EPI_BIAS, EPI_BIAS_GELU, EPI_BIAS_RESIDUAL):
         want = want + bias.float()
     tol = 1e-4 if epi == EPI_NONE_F32 else 2.0**-8 + 1e-4
-    assert _max_err(out, want) <= tol * want.abs().max().item()
+    bound = tol * want.abs().max().item()
+    if epi == EPI_BIAS_GELU:
+        want = torch.nn.functional.gelu(want)
+        bound = tol * want.abs().max().item()
+    if epi == EPI_BIAS_RESIDUAL:
+        inner = want.to(bf).float()
+        want = res.float() + inner
+        bound = tol * want.abs().max().item() + 2.0**-7 * inner.abs().max().item()
+    assert _max_err(out, want) <= bound
+
+
+# (B, T, D, H, mask) of the attention core alone: the lengths at the edges
+# of its 64-key tiles and 128-query blocks, the image and point paths' T,
+# T = 512 at 6 heads of 128, and head_dim 32 and 128. mask: None (dense) or
+# "ragged" (sample 0 keeps its first T // 4 keys, sample 1 none, sample 2
+# all).
+ATTN_CORE_CASES = (
+    [(3, t, 768, 12, mask) for t in (1, 17, 64, 65, 128, 129, 197, 257)
+     for mask in (None, "ragged")]
+    + [(3, 512, 768, 6, "ragged"), (2, 512, 768, 6, None),
+       (3, 197, 256, 8, "ragged"), (3, 129, 256, 8, None),
+       (3, 197, 1024, 8, "ragged"), (3, 65, 1024, 8, None)]
+)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b, t, d, h, mask", ATTN_CORE_CASES)
+def test_attn_core_matches_plain(cuda_device, b, t, d, h, mask):
+    """The attention sublayer's wgmma core alone (mt_attn_core) vs the plain
+    version's core in fp32 from the same bf16 QKV slab; a fully masked
+    sample spreads p evenly over its T keys in both; a second launch is
+    bit-equal."""
+    from metatransformer_tpu_torch.ops import _build
+
+    rng = np.random.default_rng(t * d + h)
+    qkv = torch.tensor(rng.standard_normal((b, t, 3 * d)).astype(np.float32)).to(
+        cuda_device, torch.bfloat16)
+    bias = None
+    if mask == "ragged":
+        keep = torch.ones(b, t, dtype=torch.bool, device=cuda_device)
+        keep[0, t // 4:] = False
+        keep[1, :] = False
+        bias = torch.where(keep, 0.0, fb.NEG_INF).float()
+    outs = []
+    for _ in range(2):
+        o = torch.full((b, t, d), float("nan"), device=cuda_device, dtype=torch.bfloat16)
+        rc = _build.library().mt_attn_core(
+            qkv.data_ptr(), None if bias is None else bias.data_ptr(), o.data_ptr(), b, t, d,
+            h, torch.cuda.current_stream().cuda_stream)
+        assert rc == 0
+        outs.append(o)
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1])
+    want = fb.attention_core_plain(qkv.float(), bias, num_heads=h)
+    assert _max_err(outs[0], want) <= TOL
 
 
 @pytest.mark.cuda
