@@ -1,20 +1,22 @@
 """Chip smoke test of the PyTorch/CUDA port: drives the ViT-B16 image
 serving path, the ViT-B16 image training step, the ViT-B16 video classifier
 (16 x 224^2 clip, 1568 tokens; served and trained, frozen-encoder and full
-fine-tune) and the ViT-B16 point-cloud models (classifier served and
-trained, segmenter served, masked point ViT trained) and a whole ViT-L14
-image classifier (served) on one NVIDIA GPU through the hand-written
-kernels.
+fine-tune), the ViT-B16 point-cloud models (classifier served and trained,
+segmenter served, masked point ViT trained, multi-view classifier served)
+and a whole ViT-L14 image classifier (served and trained) on one NVIDIA GPU
+through the hand-written kernels.
 
     python3 chip_smoke.py [--seed N] [--profile]
     python3 chip_smoke.py --bwd-times      # only the flash backward and video-step times
-    python3 chip_smoke.py --kernel-times   # only #1-#4 and the forwards and steps they carry
+    python3 chip_smoke.py --kernel-times   # only #1-#4, #7 and the forwards and steps they carry
+    python3 chip_smoke.py --fps-plans      # only #7 under its launch plan and variants of it
 
 Phases (any failed check raises, so the process exits non-zero):
 
 1. device: require a CUDA card, print its name and power limit, turn TF32
    off for fp32 matmuls and convolutions;
-2. build the kernels from ``metatransformer_tpu_torch/ops/csrc``;
+2. build the kernels from ``metatransformer_tpu_torch/ops/csrc`` and print
+   the registers and spills of the wgmma and FPS kernels;
 3. hold each kernel against its plain PyTorch version, computed in fp32
    from the same bf16 inputs, at the shapes of the image path (T = 197), of
    the point classifier (T = 257) and of ViT-L14 (D = 1024, 16 heads of 64,
@@ -39,7 +41,9 @@ Phases (any failed check raises, so the process exits non-zero):
    steps (losses, the first gradient and the update of the largest leaf)
    against the same run with the plain versions on the card;
 8. time one optimizer step of each track, with its peak memory; with
-   ``--profile``, device time by kernel of a full-track step;
+   ``--profile``, device time by kernel of a full-track step; then one
+   full-track AdamW step of the whole ViT-L14 classifier at b = 8, held
+   against the plain versions at the image bounds;
 9. video: hold the three flash-attention kernels (forward, dq, dk/dv)
    against their plain versions at B*H = 12 and 96, T = 1568, head_dim 64,
    dense, ragged and with a fully masked sample, at the segmenter's T = 513
@@ -48,21 +52,31 @@ Phases (any failed check raises, so the process exits non-zero):
    fp32, and the autograd Function against fp32 autograd; serve uint8 clips
    of b = 1 and 8 and one 15-view request through a full-width
    ``VideoClassifier``; take 4 AdamW steps of each track at batch 8 through
-   ``Trainer``, and one full-track step with ``remat=True`` against one
-   without from the same weights and batch; take 2 steps of the video-MAE
-   loss at batch 4 (the fp32 kernel route); each against the plain versions
-   on the card; then time the kernels, the whole flash backward, the clip
-   forward and one step of each track;
+   ``Trainer``, and one full-track step with ``remat=True`` and one with
+   ``remat="save"`` against one without from the same weights and batch;
+   take 2 steps of the video-MAE loss at batch 4 (the fp32 kernel route);
+   each against the plain versions on the card; then time the kernels, the
+   whole flash backward, the clip forward and one step of each track;
 10. point clouds: hold the furthest-point-sampling kernel against its plain
-    version index for index (both routes, duplicated points, ragged masks,
-    a second launch); serve float clouds of b = 1, 8, 64 (1024 points, 257
-    tokens, fused sublayers) through a full-width ``PointClassifier`` and of
-    b = 1, 8 (2048 points, 513 tokens, flash attention) through a
-    full-width ``PointSegmenter``; take 4 AdamW steps of both classifier
-    tracks at batch 32 through ``Trainer`` and 2 steps of the masked point
-    ViT at batch 32 (FP32); each against the plain versions on the card;
-    then time the kernel, the forwards and one step of each track;
-11. print one JSON line describing the kernels, then the result line.
+    version index for index on every route of its launch plan (one block,
+    a thread block cluster, the largest cluster, the device-memory route),
+    on duplicated points with ties across a cluster's blocks, through
+    masked_fps with ragged masks, with a second launch bit-equal; serve
+    float clouds of b = 1, 8, 64 (1024 points, 257 tokens, fused sublayers)
+    through a full-width ``PointClassifier`` and of b = 1, 8 (2048 points,
+    513 tokens, flash attention) through a full-width ``PointSegmenter``;
+    take 4 AdamW steps of both classifier tracks at batch 32 through
+    ``Trainer``, then one step of each track with head dropout off and the
+    max-pools and head ReLUs pinned to the plain run's choices (at the image
+    bounds), and 2 steps of the masked point ViT at batch 32 (FP32); serve
+    8 clouds through the multi-view classifier (32 rendered views); each
+    against the plain versions on the card; time the kernel, the forwards
+    and one step of each track (``--profile``: also the masked point ViT
+    step);
+11. the host: the C++ host runtime (grid subsampling, kNN) against its
+    numpy twins, and host-to-device copy times of an image and a cloud
+    batch;
+12. print one JSON line describing the kernels, then the result line.
 
 It imports nothing of JAX. Without a CUDA card it raises before printing
 any result.
@@ -162,6 +176,7 @@ POINT_N, POINT_T, POINT_CLASSES = 1024, 257, 40
 POINT_SERVE_BATCHES = (1, 8, 64)
 POINT_TRAIN_BATCH, POINT_TRAIN_STEPS = 32, 4
 SEG_N, SEG_T, SEG_CLASSES, SEG_SERVE_BATCHES = 2048, 513, 13, (1, 8)
+MULTIVIEW_BATCH = 8  # clouds a request of the multi-view classifier (4 views each)
 POINT_MAE_BATCH, POINT_MAE_STEPS = 32, 2
 # AdamW rates of the point training check, as CHECK_LR for images. The head
 # drops half its inputs, another half at every step, so the loss on the
@@ -188,9 +203,11 @@ POINT_MAE_BATCH, POINT_MAE_STEPS = 32, 2
 POINT_CHECK_LR = {"frozen": 1e-4, "full": 1e-5}
 POINT_UPDATE_BOUNDS = (0.98, 0.5)  # least share inside the bound, largest relative L2
 # The FPS kernel is held to its plain version with torch.equal: (B, N, G).
-# The last case is past the shared-memory route (N > 14,336).
+# 1024 and 2048 points run on one block, 16384 on a cluster of 8 blocks,
+# 65536 on the largest cluster (8 blocks of 8192) and 65537 on the
+# device-memory route past it.
 FPS_CASES = [(1, 1024, 256), (64, 1024, 256), (8, 2048, 512), (32, 1024, 64),
-             (2, 16384, 4096)]
+             (2, 16384, 4096), (1, 65536, 512), (1, 65537, 256)]
 FPS_MAIN_CASE = (64, 1024, 256)  # the classifier's b = 64 request
 
 # ViT-L14 (enc.LARGE): D = 1024, 16 heads of 64, MLP 4096, T = 257 at patch
@@ -241,9 +258,9 @@ def phase_build():
 
     names = {p.name for p in _build._SOURCES}
     wanted = re.compile(r"(flash_fwd_wgmma|flash_bwd_dq_wgmma|flash_bwd_dkv_wgmma|attn_bwd_q|"
-                        r"attn_bwd_kv|attn_core|gemm_sm90)I(\w+?)EEv")
+                        r"attn_bwd_kv|attn_core|gemm_sm90|fps_regs)I(\w+?)EEv|(fps_device)E")
     for source in ("fused_block.cu", "flash_attention_fwd.cu", "flash_attention_bwd.cu",
-                   "fused_block_bwd.cu"):
+                   "fused_block_bwd.cu", "point_ops.cu"):
         if source not in names:  # an older checkout
             continue
         kernel = None
@@ -251,7 +268,9 @@ def phase_build():
             if "Compiling entry function" in line:
                 found = wanted.search(line)
                 kernel = None
-                if found:  # template arguments: Li64 -> 64, Li0ELb1 -> 0,1
+                if found and found.group(3):
+                    kernel = found.group(3)
+                elif found:  # template arguments: Li64 -> 64, Li0ELb1 -> 0,1
                     args = ",".join(re.findall(r"L[ib](\d+)", found.group(2)))
                     kernel = f"{found.group(1)}<{args}>"
             elif line.startswith("ptxas") and "warning" in line or (
@@ -597,16 +616,17 @@ def _train_batch():
     return {"input": images, "label": labels}
 
 
-def _make_trainer(track: str, seed: int, lr: float = 1e-3):
-    """Full-width ViT-B16 through the port's entry points; no device is
-    named anywhere, so parameters, optimizer state and batches are on the
-    card. AdamW at ``lr``, weight decay 0.05, BF16 policy."""
+def _make_trainer(track: str, seed: int, lr: float = 1e-3, cfg=None):
+    """Full-width ViT-B16 (or the classifier ``cfg``) through the port's
+    entry points; no device is named anywhere, so parameters, optimizer
+    state and batches are on the card. AdamW at ``lr``, weight decay 0.05,
+    BF16 policy."""
     from metatransformer_tpu_torch.core import encoder as enc
     from metatransformer_tpu_torch.models import image_classifier as ic
     from metatransformer_tpu_torch.train import optim, step as step_lib
     from metatransformer_tpu_torch.train.trainer import Trainer, TrainerConfig
 
-    cfg = ic.ImageClassifierConfig()
+    cfg = cfg or ic.ImageClassifierConfig()
     params = ic.init(cfg, torch.Generator().manual_seed(seed))
     frozen_keys = step_lib.FROZEN_KEYS if track == "frozen" else ()
     if track == "frozen":  # a frozen encoder is cast once, outside the step
@@ -632,7 +652,8 @@ def _largest_leaf(tree):
 
 def _train_tracks(what, make_trainer, batch, steps, per_step, weight_grads, lrs,
                   make_generator=lambda: None, fall_every_step: bool = True,
-                  update_bounds=(UPDATE_MIN_FRACTION, UPDATE_REL_L2)) -> dict:
+                  update_bounds=(UPDATE_MIN_FRACTION, UPDATE_REL_L2),
+                  tracks=("frozen", "full"), compare_steps: int = COMPARE_STEPS) -> dict:
     """Both tracks of one model through ``Trainer`` on one fixed batch:
     ``steps`` AdamW steps with the kernel launches of every step held to
     ``per_step`` (kernels not named: 0) and the fused sublayers'
@@ -646,15 +667,16 @@ def _train_tracks(what, make_trainer, batch, steps, per_step, weight_grads, lrs,
     caller asks only that the last loss lies below the first
     (``fall_every_step=False``). ``update_bounds`` is the least share of the
     largest leaf's update inside the elementwise bound and its largest
-    relative L2 distance from the plain run's. Returns the launches of each
-    track."""
+    relative L2 distance from the plain run's. ``tracks`` and
+    ``compare_steps`` (at most ``steps``; with one step no fall is asked)
+    narrow the check. Returns the launches of each track."""
     min_fraction, max_rel_l2 = update_bounds
     from metatransformer_tpu_torch import ops
     from metatransformer_tpu_torch.ops import fused_block as fb
 
     size = len(batch["label"])
     launches = {}
-    for track in ("frozen", "full"):
+    for track in tracks:
         trainer = make_trainer(track, lrs[track])
         path, leaf = _largest_leaf(trainer.trainable)
         start = leaf.detach().clone()
@@ -676,7 +698,7 @@ def _train_tracks(what, make_trainer, batch, steps, per_step, weight_grads, lrs,
                                      f"{wg}, expected {weight_grads[track]} per sublayer kind")
             if step == 0:  # the step leaves its gradients on the leaves
                 first_grad = leaf.grad.detach().clone()
-            if step == COMPARE_STEPS - 1:
+            if step == compare_steps - 1:
                 updates = leaf.detach() - start
         torch.cuda.synchronize()
         launches[track] = ops.launch_counts()
@@ -703,7 +725,7 @@ def _train_tracks(what, make_trainer, batch, steps, per_step, weight_grads, lrs,
         ref_generator = make_generator()
         ref_losses, ref_first_grad = [], None
         with _plain_versions():
-            for step in range(COMPARE_STEPS):
+            for step in range(compare_steps):
                 ref_losses.append(ref_trainer.train_epoch([batch], ref_generator)["loss"])
                 if step == 0:
                     ref_first_grad = ref_leaf.grad.detach().clone()
@@ -715,7 +737,7 @@ def _train_tracks(what, make_trainer, batch, steps, per_step, weight_grads, lrs,
         inside = ((updates - ref_updates).abs()
                   <= atol + UPDATE_RTOL * ref_updates.abs()).float().mean().item()
         rel_l2 = ((updates - ref_updates).norm() / ref_updates.norm()).item()
-        print(f"{what} {track} vs plain versions, {COMPARE_STEPS} steps: |loss diff| "
+        print(f"{what} {track} vs plain versions, {compare_steps} step(s): |loss diff| "
               + " ".join(f"{v:.5f}" for v in diffs)
               + f" (tol {LOSS_TOL}); update of {'/'.join(path)} {tuple(leaf.shape)}: "
               f"{inside:.4f} of elements within rtol {UPDATE_RTOL} + atol {atol:.3g} "
@@ -742,6 +764,20 @@ def phase_train(seed: int, dev) -> dict:
         "train", lambda track, lr: _make_trainer(track, seed, lr)[0], _train_batch(),
         TRAIN_STEPS, {k: depth for k in FUSED_KERNELS},
         {"frozen": 0, "full": 4 * depth}, CHECK_LR)
+
+
+def phase_large_train(seed: int, dev) -> dict:
+    """One full-track AdamW step of the whole ViT-L14 classifier (24 blocks
+    of 1024, patch 14, T = 257) at b = LARGE_BATCH through ``Trainer``: 24
+    launches of each fused kernel, and the loss, the largest leaf's first
+    gradient and its update held against the same step with the plain
+    versions on the card at the image bounds."""
+    depth = _large_cfg().encoder.depth
+    batch = {k: v[:LARGE_BATCH] for k, v in _train_batch().items()}
+    return _train_tracks(
+        "L14 train", lambda track, lr: _make_trainer(track, seed, lr, _large_cfg())[0], batch,
+        1, {k: depth for k in FUSED_KERNELS}, {"full": 4 * depth}, CHECK_LR,
+        tracks=("full",), compare_steps=1)["full"]
 
 
 # --------------------------------------------------------------------------
@@ -1223,17 +1259,19 @@ def phase_video_train(seed: int, dev) -> dict:
 
 
 def phase_video_remat(seed: int, dev):
-    """One full-track video step at b = 8 with ``remat=True`` against one
-    with ``remat=False`` from the same weights and batch. Under remat each
-    block runs its forward again in the backward (24 forward-kernel
-    launches a step, not 12), and the backward kernels read the recomputed
-    lse. The losses and the largest leaf's gradient are held within
-    BWD_REL_TOL of each other (relative to the larger value); both peak
-    memories are printed."""
+    """One full-track video step at b = 8 with ``remat=True`` and one with
+    ``remat="save"``, each against one with ``remat=False`` from the same
+    weights and batch. Under remat each block runs its forward again in the
+    backward (24 forward-kernel launches a step, not 12), and the backward
+    kernels read the recomputed lse; "save" keeps the block's intermediates
+    and leaves the flash path (T = 1568) as it is, 12 launches of each. The
+    losses and the largest leaf's gradient are held within BWD_REL_TOL of
+    the run without remat (relative to the larger value); the peak memories
+    are printed. Returns the launches of the remat=True and "save" steps."""
     from metatransformer_tpu_torch import ops
 
     depth, batch, runs = _video_cfg().encoder.depth, _video_batch(), {}
-    for remat in (False, True):
+    for remat in (False, True, "save"):
         trainer = _make_video_trainer("full", seed, VIDEO_CHECK_LR["full"], remat=remat)
         path, leaf = _largest_leaf(trainer.trainable)
         torch.cuda.synchronize()
@@ -1245,20 +1283,23 @@ def phase_video_remat(seed: int, dev):
                        torch.cuda.max_memory_allocated() / 2**30)
         del trainer, leaf
         torch.cuda.empty_cache()
-    (loss0, grad0, counts0, peak0), (loss1, grad1, counts1, peak1) = runs[False], runs[True]
-    want = {"flash_fwd": 2 * depth, "flash_bwd_dq": depth, "flash_bwd_dkv": depth}
-    if {k: v for k, v in counts1.items() if v} != want:
-        raise AssertionError(f"video remat step: launches {counts1}, expected {want}")
-    loss_rel = abs(loss1 - loss0) / abs(loss0)
-    grad_rel = ((grad1 - grad0).abs().max() / grad0.abs().max()).item()
-    print(f"video remat: one full-track step at batch {VIDEO_TRAIN_BATCH}, remat=True vs "
-          f"False: losses {loss1:.6f} / {loss0:.6f} (relative diff {loss_rel:.3g}), first "
-          f"gradient of {'/'.join(path)} relative max diff {grad_rel:.3g} (tol {BWD_REL_TOL}); "
-          f"launches {counts1} vs {counts0}; peak memory {peak1:.3f} GiB with remat, "
-          f"{peak0:.3f} GiB without", flush=True)
-    if not (loss_rel <= BWD_REL_TOL and grad_rel <= BWD_REL_TOL):
-        raise AssertionError("video remat step differs from the step without remat")
-    return counts1
+    loss0, grad0, counts0, peak0 = runs[False]
+    expected = {True: {"flash_fwd": 2 * depth, "flash_bwd_dq": depth, "flash_bwd_dkv": depth},
+                "save": {k: depth for k in FLASH_KERNELS}}
+    for remat, want in expected.items():
+        loss1, grad1, counts1, peak1 = runs[remat]
+        if {k: v for k, v in counts1.items() if v} != want:
+            raise AssertionError(f"video remat={remat!r} step: launches {counts1}, expected {want}")
+        loss_rel = abs(loss1 - loss0) / abs(loss0)
+        grad_rel = ((grad1 - grad0).abs().max() / grad0.abs().max()).item()
+        print(f"video remat: one full-track step at batch {VIDEO_TRAIN_BATCH}, remat={remat!r} "
+              f"vs False: losses {loss1:.6f} / {loss0:.6f} (relative diff {loss_rel:.3g}), "
+              f"first gradient of {'/'.join(path)} relative max diff {grad_rel:.3g} (tol "
+              f"{BWD_REL_TOL}); launches {counts1} vs {counts0}; peak memory {peak1:.3f} GiB "
+              f"with remat={remat!r}, {peak0:.3f} GiB without", flush=True)
+        if not (loss_rel <= BWD_REL_TOL and grad_rel <= BWD_REL_TOL):
+            raise AssertionError(f"video remat={remat!r} step differs from the step without remat")
+    return runs[True][2], runs["save"][2]
 
 
 def _mae_clips():
@@ -1478,7 +1519,8 @@ def phase_kernel_times(seed: int, dev, profile: bool = False) -> dict:
     T = 1568, head_dim 64, bf16, dense) by the launch loop, each beside its
     library yardstick (the composition; its backward; scaled_dot_product_
     attention), then the forwards and steps they carry: the image forward at
-    b = 128, the point forward at b = 64, one image step of each track at
+    b = 128, the point forward at b = 64, the segmenter forward at b = 8,
+    kernel #7 at every case of FPS_CASES, one image step of each track at
     b = 128, the video forward at b = 8 and one video step of each track at
     b = 8. Only the port's entry points that every version since the point
     clouds have, so the same script times an older checkout of the package
@@ -1487,8 +1529,10 @@ def phase_kernel_times(seed: int, dev, profile: bool = False) -> dict:
     from metatransformer_tpu_torch.core import encoder as enc
     from metatransformer_tpu_torch.models import image_classifier as ic
     from metatransformer_tpu_torch.models import point_classifier as pc
+    from metatransformer_tpu_torch.models import point_segmenter as ps
     from metatransformer_tpu_torch.models import video_classifier as vc
     from metatransformer_tpu_torch.ops import flash_attention as fa
+    from metatransformer_tpu_torch.ops import point_ops as po
 
     out = {}
     for kind in ("attn_sublayer", "mlp_sublayer"):
@@ -1512,6 +1556,20 @@ def phase_kernel_times(seed: int, dev, profile: bool = False) -> dict:
     with torch.no_grad():
         out["point_forward_b64"] = _median_ms(lambda: model(clouds))
     del model, images, clouds
+    seg_cfg = ps.PointSegmenterConfig()
+    model = ps.PointSegmenter(seg_cfg, ps.init(seg_cfg, torch.Generator().manual_seed(seed)),
+                              precision=enc.BF16)
+    clouds = _clouds(seed + 7, SEG_SERVE_BATCHES[-1], SEG_N).to(dev)
+    with torch.no_grad():
+        out["segmenter_forward_b8"] = _median_ms(lambda: model(clouds))
+    del model, clouds
+    for b, n, g in FPS_CASES:  # kernel #7 at every case, its plan beside it
+        pts = _clouds(seed, b, n).to(dev)
+        with torch.no_grad():
+            ms = _loop_ms(lambda: po.fps_cuda(pts, g))
+        out[f"fps_B{b}_N{n}_G{g}"] = ms
+        print(f"fps B={b} N={n} G={g}: {ms:.4f} ms, {1e3 * ms / (g - 1):.3f} us a round "
+              f"({_fps_plan_text(n)})", flush=True)
     torch.cuda.empty_cache()
     q, k, v, _, _ = _flash_inputs(VIDEO_TRAIN_BATCH, HEADS, VT, HD, BF, False, seed, dev)
     scale = float(HD) ** -0.5
@@ -1595,10 +1653,7 @@ def phase_fps_kernel(seed: int, dev) -> float:
     points; through masked_fps with ragged masks on both routes; a second
     launch must repeat bit for bit. Returns the number of differing indices,
     counted over every case."""
-    from metatransformer_tpu_torch.ops import _build
     from metatransformer_tpu_torch.ops import point_ops as po
-
-    fits = _build.library().mt_fps_fits_shared
 
     def check(tag, pts, g):
         with torch.no_grad():
@@ -1611,8 +1666,7 @@ def phase_fps_kernel(seed: int, dev) -> float:
         if not torch.equal(got, again):
             raise AssertionError(f"fps {tag}: a second launch does not repeat")
         wrong = int((got != want).sum())
-        route = "shared memory" if fits(pts.shape[1]) else "device memory"
-        print(f"fps {tag} ({route} route): {wrong} of {got.numel()} indices differ from the "
+        print(f"fps {tag} ({_fps_plan_text(pts.shape[1])}): {wrong} of {got.numel()} indices differ from the "
               f"plain version, bit-equal on a second launch, {got[0].unique().numel()} "
               f"distinct indices in cloud 0", flush=True)
         if wrong:
@@ -1625,7 +1679,12 @@ def phase_fps_kernel(seed: int, dev) -> float:
     base = _clouds(seed + 1, 4, 256).to(dev)
     wrong += check("B=4 N=1024 G=300, 256 distinct points each four times",
                    torch.cat([base] * 4, 1), 300)
-    for n in (1024, 16384):  # masked_fps, ragged: sample i keeps its first n (i+1) / (b+1) points
+    # ties across the blocks of a cluster: every point has a copy in each block
+    wrong += check("B=2 N=16384 G=80, 64 distinct points each 256 times",
+                   _clouds(seed + 1, 2, 64).to(dev).repeat(1, 256, 1), 80)
+    wrong += check("B=2 N=16384 G=20, one point 16384 times (every distance +0)",
+                   _clouds(seed + 1, 2, 1).to(dev).expand(2, 16384, 3), 20)
+    for n in (1024, 16384, 65537):  # masked_fps, ragged: sample i keeps its first n (i+1) / (b+1) points
         pts = _clouds(seed + 2, 8, n).to(dev)
         mask = torch.arange(n, device=dev)[None, :] < (
             torch.arange(1, 9, device=dev)[:, None] * n // 9)
@@ -1647,6 +1706,18 @@ def phase_fps_kernel(seed: int, dev) -> float:
         if differ:
             raise AssertionError(f"masked_fps N={n}: kernel disagrees with the plain version")
     return float(wrong)
+
+
+def _fps_plan_text(n: int) -> str:
+    """The FPS kernel's launch plan for n points, as a phrase; "plan not
+    known" for a checkout whose wrapper has no plan."""
+    from metatransformer_tpu_torch.ops import point_ops as po
+
+    if not hasattr(po, "_fps_plan"):
+        return "plan not known"
+    plan = po._fps_plan(n)
+    return (f"{plan.route} route, {max(plan.cluster, 1)} block(s) a cloud of {plan.threads} "
+            f"threads" + (f", {plan.ppt} points a thread" if plan.ppt else ""))
 
 
 def _fps_bound(b: int, n: int, g: int) -> dict:
@@ -1679,7 +1750,7 @@ def phase_fps_times(seed: int, dev) -> dict:
         bound = _fps_bound(b, n, g)
         print(f"fps B={b} N={n} G={g}: kernel {ms:.4f} ms by a loop of {TIMING_REPS} launches "
               f"(one timed call: {single:.4f} ms; {1e3 * ms / (g - 1):.3f} us a "
-              f"round, {po._fps_threads(n)} threads a block, {b} blocks), plain {plain_ms:.4f} "
+              f"round; {_fps_plan_text(n)}), plain {plain_ms:.4f} "
               f"ms, library none, bound {bound['bound_ms']:.6f} ms by {bound['bound_by']} "
               f"({bound['gflop']:.4f} GFLOP fp32, {bound['mbytes']:.3f} MB; "
               f"{100 * bound['bound_ms'] / ms:.2f}% of the bound's rate) (plain: median of "
@@ -1688,6 +1759,47 @@ def phase_fps_times(seed: int, dev) -> dict:
             times["fps"] = {"ms": ms, "ms_single_call": single, "plain_ms": plain_ms,
                             **{k: bound[k] for k in ("bound_ms", "bound_by")}}
     return times
+
+
+def phase_fps_plans(seed: int, dev) -> dict:
+    """Kernel #7 at every case of FPS_CASES under its launch plan and under
+    plans with one knob of ``point_ops._fps_plan`` changed (the fewest
+    points a thread in a cluster, the most threads a block,
+    the largest cloud on one block, the points a block of a cluster aims
+    at), also at 4096 and 8192 points: every plan's indices must equal the first plan's, and
+    the time of each distinct plan is printed, to choose the knobs."""
+    from contextlib import ExitStack
+
+    from metatransformer_tpu_torch.ops import point_ops as po
+
+    variants = ([{}] + [{"_FPS_CLUSTER_MIN_PPT": v} for v in (4, 16)]
+                + [{"_FPS_THREADS": v} for v in (256, 1024)]
+                + [{"_FPS_ONE_BLOCK": v} for v in (2048, 8192)]
+                + [{"_FPS_CLUSTER_SHARE": v} for v in (512, 2048)])
+    out = {}
+    for b, n, g in FPS_CASES + [(8, 4096, 512), (8, 8192, 512)]:  # and both sides of _FPS_ONE_BLOCK
+        pts = _clouds(seed, b, n).to(dev)
+        with torch.no_grad():
+            want = po.fps_cuda(pts, g)
+        seen = set()
+        for variant in variants:
+            with ExitStack() as stack:
+                for name, value in variant.items():
+                    stack.enter_context(mock.patch.object(po, name, value))
+                plan = po._fps_plan(n)
+                if plan in seen:
+                    continue
+                seen.add(plan)
+                with torch.no_grad():
+                    got = po.fps_cuda(pts, g)
+                    ms = _loop_ms(lambda: po.fps_cuda(pts, g))
+            if not torch.equal(got, want):
+                raise AssertionError(f"fps B={b} N={n} G={g}: plan {plan} changes the indices")
+            out[f"B{b}_N{n}_G{g} {plan.route} C={plan.cluster} T={plan.threads} "
+                f"ppt={plan.ppt}"] = ms
+            print(f"fps B={b} N={n} G={g} {variant or 'the plan'}: {plan}: {ms:.4f} ms, "
+                  f"{1e3 * ms / (g - 1):.3f} us a round", flush=True)
+    return out
 
 
 def _point_cfg():
@@ -1779,17 +1891,20 @@ def _dropout_generator(seed: int):
     return torch.Generator(device="cuda").manual_seed(seed)
 
 
-def _make_point_trainer(track: str, seed: int, lr: float = 1e-3):
+def _make_point_trainer(track: str, seed: int, lr: float = 1e-3, head_dropout=None):
     """Full-width point classifier through the port's entry points (no
     device named): AdamW at ``lr``, weight decay 0.05, BF16 policy, head
-    dropout 0.5 as configured. The frozen track trains tokenizer, positional
-    MLP, cls token and position, final LayerNorm and head."""
+    dropout 0.5 as configured (or ``head_dropout``). The frozen track trains
+    tokenizer, positional MLP, cls token and position, final LayerNorm and
+    head."""
     from metatransformer_tpu_torch.core import encoder as enc
     from metatransformer_tpu_torch.models import point_classifier as pc
     from metatransformer_tpu_torch.train import optim, step as step_lib
     from metatransformer_tpu_torch.train.trainer import Trainer, TrainerConfig
 
     cfg = _point_cfg()
+    if head_dropout is not None:
+        cfg = dataclasses.replace(cfg, head_dropout=head_dropout)
     params = pc.init(cfg, torch.Generator().manual_seed(seed))
     frozen_keys = step_lib.FROZEN_KEYS if track == "frozen" else ()
     if track == "frozen":  # a frozen encoder is cast once, outside the step
@@ -1813,6 +1928,94 @@ def phase_point_train(seed: int, dev) -> dict:
         {"frozen": 0, "full": 4 * depth}, POINT_CHECK_LR,
         make_generator=lambda: _dropout_generator(seed), fall_every_step=False,
         update_bounds=POINT_UPDATE_BOUNDS)
+
+
+class _PinnedRoutes:
+    """The point classifier's piecewise-linear switches, taken as recorded:
+    the conv stack's two max-pools over each group (``tokenizers.point.
+    _pool``) and the pool over the tokens (``body.amax(dim=1)``) as an argmax
+    and a gather, the head's two ReLUs (``torch.relu`` on [B, C]) as a mask.
+    Under ``record()`` each keeps what its input chooses; under ``replay()``
+    each takes the kept choice, in the order of one forward, again in every
+    forward. A run recorded with the plain versions and replayed with the
+    kernels routes every gradient through the same elements, so no switch
+    flips on a rounding difference."""
+
+    def __init__(self):
+        self.kept, self.calls, self.mode = [], 0, None
+
+    def _choice(self, choose, x):
+        if self.mode == "record":
+            self.kept.append(choose(x.detach()))
+            return self.kept[-1]
+        self.calls += 1
+        return self.kept[(self.calls - 1) % len(self.kept)]
+
+    def _patched(self, mode):
+        from contextlib import ExitStack
+
+        from metatransformer_tpu_torch.tokenizers import point as point_tok
+
+        amax, relu = torch.Tensor.amax, torch.relu
+
+        def pool(x, cfg):
+            if cfg.reduction != "max":
+                raise AssertionError(f"pinned pools need max reduction, got {cfg.reduction}")
+            return x.gather(2, self._choice(lambda t: t.argmax(2, keepdim=True), x))
+
+        def tensor_amax(t, dim=(), keepdim=False):
+            if dim == 1 and not keepdim and t.dim() == 3:  # the pool over the tokens
+                return t.gather(1, self._choice(lambda u: u.argmax(1, keepdim=True), t))[:, 0]
+            return amax(t, dim, keepdim)
+
+        def head_relu(x):
+            if x.dim() != 2:  # the conv stack's ReLUs run before the kernels: no flips
+                return relu(x)
+            return torch.where(self._choice(lambda t: t > 0, x), x, 0.0)
+
+        self.mode = mode
+        stack = ExitStack()
+        stack.enter_context(mock.patch.object(point_tok, "_pool", pool))
+        stack.enter_context(mock.patch.object(torch.Tensor, "amax", tensor_amax))
+        stack.enter_context(mock.patch.object(torch, "relu", head_relu))
+        return stack
+
+    def record(self):
+        return self._patched("record")
+
+    def replay(self):
+        return self._patched("replay")
+
+
+def phase_point_train_pinned(seed: int, dev) -> dict:
+    """The point training check with what makes its runs part taken out:
+    head dropout off, and the max-pools' argmax and the head's ReLU masks
+    recorded from a plain-version step and replayed in both compared runs
+    (``_PinnedRoutes``). For each
+    track one AdamW step with the kernels against one with the plain
+    versions from the same weights and batch: losses within LOSS_TOL, the
+    largest leaf's first gradient within GRAD_STEP_REL_L2 and its update at
+    the image bounds (UPDATE_MIN_FRACTION, UPDATE_REL_L2), as
+    _train_tracks holds them. Returns the launches of each track."""
+    depth = _point_cfg().encoder.depth
+    batch = _point_batch(seed)
+    make = lambda track, lr: _make_point_trainer(track, seed, lr, head_dropout=0.0)
+    launches = {}
+    for track in ("frozen", "full"):
+        pins = _PinnedRoutes()
+        with pins.record(), _plain_versions():
+            make(track, POINT_CHECK_LR[track]).train_epoch([batch])
+        with pins.replay():
+            launches.update(_train_tracks(
+                "point train, dropout off, pools and head ReLUs pinned", make, batch, 1,
+                {"fps": 1, **{k: depth for k in FUSED_KERNELS}},
+                {"frozen": 0, "full": 4 * depth}, POINT_CHECK_LR, tracks=(track,),
+                compare_steps=1))
+        if len(pins.kept) != 5 or pins.calls != 2 * len(pins.kept):
+            raise AssertionError(f"pinned switches: {len(pins.kept)} recorded, {pins.calls} "
+                                 f"replayed; expected 5 (3 pools, 2 ReLUs) and 10")
+        torch.cuda.empty_cache()
+    return launches
 
 
 def _make_point_mae_trainer(seed: int):
@@ -1871,6 +2074,108 @@ def phase_point_mae(seed: int, dev) -> dict:
     return launches
 
 
+def phase_multiview_serve(seed: int, dev) -> dict:
+    """One request of b = MULTIVIEW_BATCH float clouds of POINT_N points
+    through the full-width multi-view point classifier (4 rendered views of
+    224^2 a cloud, folded into the batch: 32 images through ViT-B16 at
+    T = 197, BF16), no device named: 12 launches of each fused sublayer and
+    no FPS; logits held against the same model run with the plain versions
+    on the card at the serving tolerance."""
+    from metatransformer_tpu_torch import ops
+    from metatransformer_tpu_torch.core import encoder as enc
+    from metatransformer_tpu_torch.models import point_multiview as mv
+
+    cfg = mv.MultiViewConfig()
+    params = mv.init(cfg, torch.Generator().manual_seed(seed))  # lands on the card
+    if params["head"]["w0"].device.type != "cuda":
+        raise AssertionError("the multi-view model did not land on the card")
+    clouds = _clouds(seed + 11, MULTIVIEW_BATCH, POINT_N).to(dev)
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        logits = mv.forward(params, clouds, cfg, precision=enc.BF16)
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+        with _plain_versions():
+            ref = mv.forward(params, clouds, cfg, precision=enc.BF16)
+        ms = _median_ms(lambda: mv.forward(params, clouds, cfg, precision=enc.BF16))
+    depth = cfg.encoder.depth
+    _check_launches_per_request([launches], {"attn_sublayer": depth, "mlp_sublayer": depth},
+                                "multi-view serve")
+    if logits.shape != (MULTIVIEW_BATCH, cfg.num_classes) or not torch.isfinite(logits).all():
+        raise AssertionError(f"multi-view: logits {tuple(logits.shape)}, finite "
+                             f"{bool(torch.isfinite(logits).all())}")
+    err = (logits - ref).abs().max().item()
+    top1 = (logits.argmax(-1) == ref.argmax(-1)).float().mean().item()
+    print(f"multi-view point classifier b={MULTIVIEW_BATCH} N={POINT_N} ({cfg.num_views} views, "
+          f"{MULTIVIEW_BATCH * cfg.num_views} images of {cfg.proj.img_size}^2): logits {tuple(logits.shape)}, max "
+          f"|kernel - plain| {err:.6g}, top-1 agreement {top1:.4f}; launches {launches}; forward "
+          f"{ms:.4f} ms (median of {TIMING_REPS})", flush=True)
+    torch.testing.assert_close(logits, ref, atol=LOGIT_ATOL, rtol=LOGIT_RTOL)
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_native_host(seed: int) -> None:
+    """The C++ host runtime (runtime/native.py), built with g++ on this
+    machine, against its numpy twins at a size of the input pipeline: voxel
+    grid subsampling of a 65,536-point cloud with 4 features at dl = 0.06,
+    and 16 nearest neighbours of 2,048 queries in 8,192 support points; the
+    bounds of tests/test_torch_point_multiview.py. Host times beside them."""
+    from metatransformer_tpu_torch.runtime import native
+
+    rng = np.random.default_rng(seed + 13)
+    pts = rng.uniform(-1, 1, (65536, 3)).astype(np.float32)
+    feats = rng.standard_normal((65536, 4)).astype(np.float32)
+    t0 = time.perf_counter()
+    native.library()
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got_p, got_f = native.grid_subsample(pts, feats, dl=0.06)
+    grid_ms = (time.perf_counter() - t0) * 1e3
+    want_p, want_f = native.grid_subsample_plain(pts, feats, dl=0.06)
+    if got_p.shape != want_p.shape:
+        raise AssertionError(f"grid_subsample: {got_p.shape} voxels, plain {want_p.shape}")
+    np.testing.assert_allclose(got_p, want_p, atol=1e-6)
+    np.testing.assert_allclose(got_f, want_f, atol=1e-5)
+    support = rng.uniform(-1, 1, (8192, 3)).astype(np.float32)
+    queries = rng.uniform(-1, 1, (2048, 3)).astype(np.float32)
+    t0 = time.perf_counter()
+    idx, d2 = native.knn_search(support, queries, 16)
+    knn_ms = (time.perf_counter() - t0) * 1e3
+    pidx, pd2 = native.knn_search_plain(support, queries, 16)
+    np.testing.assert_allclose(np.sort(d2, axis=1), pd2, rtol=1e-3, atol=1e-4)
+    same = (np.sort(idx, axis=1) == np.sort(pidx, axis=1)).mean()
+    print(f"native host runtime (g++ build {build_s:.2f} s): grid_subsample 65536 points -> "
+          f"{len(got_p)} voxels in {grid_ms:.2f} ms, equal to the numpy version within 1e-6 / "
+          f"1e-5; knn_search 2048 x 8192, k = 16 in {knn_ms:.2f} ms, distances within the "
+          f"bound, {same:.5f} of the indices equal (near-ties aside, min 0.99)", flush=True)
+    if same <= 0.99:
+        raise AssertionError(f"knn_search: {same} of the indices equal the numpy version's")
+
+
+def phase_host_copies(seed: int, dev) -> None:
+    """Host-to-device copy time of a uint8 image batch of 128 (224^2 x 3)
+    and of a float32 cloud batch of 64 x 1024 x 3, from pageable memory as
+    the serving wrappers take them (``tensor.to(device)``) and from pinned
+    memory: CUDA events around one copy, median of TIMING_REPS."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    images = torch.randint(0, 256, (128, 224, 224, 3), dtype=torch.uint8,
+                           generator=torch.Generator().manual_seed(seed))
+    clouds = _clouds(seed, POINT_SERVE_BATCHES[-1], POINT_N)
+    for what, host in (("uint8 images b=128", images), ("float32 clouds b=64", clouds)):
+        for kind, src in (("pageable", host), ("pinned", host.pin_memory())):
+            ms = _median_ms(lambda: src.to(dev, non_blocking=kind == "pinned"))
+            on_card = src.to(dev)
+            if not torch.equal(on_card.cpu(), host):
+                raise AssertionError(f"host copy of {what} ({kind}) differs")
+            nbytes = host.numel() * host.element_size()
+            print(f"host-to-device copy, {what} ({nbytes / 1e6:.3f} MB, {kind}): {ms:.4f} ms, "
+                  f"{nbytes / ms / 1e6:.2f} GB/s ({smi})", flush=True)
+
+
 def phase_point_times(model, seg_model, seed: int, dev, profile: bool):
     """Classifier forward at b = 1, 8, 64, segmenter forward at b = 1, 8,
     one step of each classifier track and of the masked point ViT."""
@@ -1900,7 +2205,8 @@ def phase_point_times(model, seg_model, seed: int, dev, profile: bool):
     trainer = _make_point_mae_trainer(seed)
     masks = torch.Generator(device=trainer.device).manual_seed(seed)
     _time_step("point MAE step (FP32 policy)", trainer,
-               {"input": _clouds(seed + 5, POINT_MAE_BATCH, POINT_N).numpy()}, "clouds", masks)
+               {"input": _clouds(seed + 5, POINT_MAE_BATCH, POINT_N).numpy()}, "clouds", masks,
+               "masked point ViT step" if profile else None)
     del trainer
     torch.cuda.empty_cache()
 
@@ -1921,6 +2227,9 @@ def main() -> None:
                          "the image and point forwards, one image step of each track, the "
                          "video forward and one video step of each track, to compare "
                          "checkouts in turns; prints no result")
+    ap.add_argument("--fps-plans", action="store_true",
+                    help="only build and time kernel #7 at every FPS case under its launch "
+                         "plan and plans with one knob changed; prints no result")
     args = ap.parse_args()
 
     phase_device()
@@ -1932,6 +2241,9 @@ def main() -> None:
     if args.kernel_times:
         phase_kernel_times(args.seed, dev, args.profile)
         return
+    if args.fps_plans:
+        phase_fps_plans(args.seed, dev)
+        return
     errs = phase_kernels(args.seed, dev)
     phase_autograd(args.seed, dev)
     model, serve_launches = phase_serve(args.seed, dev)
@@ -1941,6 +2253,8 @@ def main() -> None:
     train_launches = phase_train(args.seed, dev)
     torch.cuda.empty_cache()
     phase_train_times(args.seed, dev, args.profile)
+    large_train_launches = phase_large_train(args.seed, dev)
+    torch.cuda.empty_cache()
 
     errs.update(phase_flash_kernels(args.seed, dev))
     phase_flash_autograd(args.seed, dev)
@@ -1950,7 +2264,7 @@ def main() -> None:
     del video_model
     torch.cuda.empty_cache()
     video_train_launches = phase_video_train(args.seed, dev)
-    video_remat_launches = phase_video_remat(args.seed, dev)
+    video_remat_launches, video_remat_save_launches = phase_video_remat(args.seed, dev)
     mae_launches = phase_video_mae(args.seed, dev)
     phase_video_mae_time(args.seed, dev)
 
@@ -1962,34 +2276,47 @@ def main() -> None:
     del point_model, seg_model
     torch.cuda.empty_cache()
     point_train_launches = phase_point_train(args.seed, dev)
+    pinned_launches = phase_point_train_pinned(args.seed, dev)
     point_mae_launches = phase_point_mae(args.seed, dev)
+    multiview_launches = phase_multiview_serve(args.seed, dev)
+    phase_native_host(args.seed)
+    phase_host_copies(args.seed, dev)
 
     by_path = {
         "serve": serve_launches,
         "large_serve": large_launches,
         **{f"train_{k}": v for k, v in train_launches.items()},
+        "large_train": large_train_launches,
         "video_serve": video_serve_launches,
         **{f"video_train_{k}": v for k, v in video_train_launches.items()},
         "video_remat": video_remat_launches,
+        "video_remat_save": video_remat_save_launches,
         "video_mae": mae_launches,
         "point_serve": point_serve_launches,
         **{f"point_train_{k}": v for k, v in point_train_launches.items()},
+        **{f"point_train_pinned_{k}": v for k, v in pinned_launches.items()},
         "seg_serve": seg_serve_launches,
         "point_mae": point_mae_launches,
+        "multiview_serve": multiview_launches,
     }
     on_path = {  # the kernels each path must have gone through
         "serve": ("attn_sublayer", "mlp_sublayer"),
         "large_serve": ("attn_sublayer", "mlp_sublayer"),
         "train_frozen": FUSED_KERNELS, "train_full": FUSED_KERNELS,
+        "large_train": FUSED_KERNELS,
         "video_serve": ("flash_fwd",),
         "video_train_frozen": FLASH_KERNELS, "video_train_full": FLASH_KERNELS,
         "video_remat": FLASH_KERNELS,
+        "video_remat_save": FLASH_KERNELS,
         "video_mae": FLASH_KERNELS,
         "point_serve": ("fps", "attn_sublayer", "mlp_sublayer"),
         "point_train_frozen": ("fps", *FUSED_KERNELS),
         "point_train_full": ("fps", *FUSED_KERNELS),
+        "point_train_pinned_frozen": ("fps", *FUSED_KERNELS),
+        "point_train_pinned_full": ("fps", *FUSED_KERNELS),
         "seg_serve": ("fps", "flash_fwd"),
         "point_mae": ("fps",),
+        "multiview_serve": ("attn_sublayer", "mlp_sublayer"),
     }
     for path, kinds in on_path.items():
         for kind in kinds:

@@ -75,10 +75,10 @@ _SOURCES = {
         "mt_flash_bwd_dkv": [_vp] * 9 + [_int] * 4 + [_ll] * 6 + [_float, _int, _vp],
     },
     _CSRC / "point_ops.cu": {
-        # points, point strides (b, n, c), min_scratch, out, B, N, G, threads,
-        # stream
-        "mt_fps": [_vp] + [_ll] * 3 + [_vp] * 2 + [_int] * 4 + [_vp],
-        "mt_fps_fits_shared": [_int],
+        # points, point strides (b, n, c), min_scratch, out, B, N, G, and the
+        # launch plan: cluster (0: the device-memory route), threads, points a
+        # thread; stream
+        "mt_fps": [_vp] + [_ll] * 3 + [_vp] * 2 + [_int] * 6 + [_vp],
     },
 }
 

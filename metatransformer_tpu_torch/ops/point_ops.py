@@ -10,8 +10,10 @@ torch here (``topk``, advanced indexing, one small matmul).
 Dispatch of :func:`furthest_point_sample` depends only on where ``points``
 lies: a CPU tensor runs :func:`furthest_point_sample_plain`, a CUDA tensor
 launches the kernel (:func:`fps_cuda`) or raises. There is no fallback
-between the two and no switch. The kernel has two routes, picked from N: the
-cloud's planes in shared memory (N <= 14,336) or read from device memory.
+between the two and no switch. The kernel's launch plan comes from N alone
+(:func:`_fps_plan`): the cloud in the registers of one block, in those of a
+thread block cluster of up to 8 blocks (N > 2,048), or, past the largest
+cluster's 65,536 points, read from device memory every round.
 
 FPS returns integers, so kernel and plain version agree index for index, not
 within a tolerance. Both compute ``d = (dx*dx + dy*dy) + dz*dz`` with every
@@ -26,7 +28,7 @@ the kernel writes int32 and the wrapper widens it).
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -69,10 +71,45 @@ def furthest_point_sample_plain(points: torch.Tensor, n_samples: int) -> torch.T
     return idx
 
 
-def _fps_threads(n: int) -> int:
-    """Threads of the one block that samples a cloud of n points: about 4
-    points a thread, whole warps, at most 1024."""
-    return min(1024, max(32, -(-n // 128) * 32))
+# The launch plan of the FPS kernel (csrc/point_ops.cu). A block holds up to
+# FPS_BLOCK_MAX points in registers (1024 threads x 8 or 512 x 16); a cloud
+# runs on one block up to _FPS_ONE_BLOCK points, on a thread block cluster of
+# at most FPS_MAX_CLUSTER blocks of about _FPS_CLUSTER_SHARE points each up to
+# FPS_CLUSTER_MAX points, and past that on the device-memory route. A block
+# takes the fewest points a thread of _FPS_PPT (at least _FPS_CLUSTER_MIN_PPT
+# in a cluster, where every warp also waits for and reduces the blocks'
+# messages) that keeps it within _FPS_THREADS threads: the fastest plans on
+# an H100 (``chip_smoke.py --fps-plans``, PERF.md).
+FPS_BLOCK_MAX = 8192
+FPS_MAX_CLUSTER = 8
+FPS_CLUSTER_MAX = FPS_MAX_CLUSTER * FPS_BLOCK_MAX  # 65,536
+_FPS_PPT = (4, 8, 16)  # points a thread the kernel is compiled for
+_FPS_CLUSTER_MIN_PPT = 8
+_FPS_THREADS = 512
+_FPS_ONE_BLOCK = 2048
+_FPS_CLUSTER_SHARE = 1024
+_FPS_DEVICE_THREADS = 1024
+
+
+class FpsPlan(NamedTuple):
+    route: str  # "block", "cluster" or "device"
+    cluster: int  # blocks a cloud (0 on the device route)
+    threads: int  # threads a block
+    ppt: int  # points a thread (0 on the device route)
+
+
+def _fps_plan(n: int) -> FpsPlan:
+    """The launch plan of the FPS kernel for a cloud of n points."""
+    if n > FPS_CLUSTER_MAX:
+        return FpsPlan("device", 0, _FPS_DEVICE_THREADS, 0)
+    blocks = 1 if n <= _FPS_ONE_BLOCK else min(FPS_MAX_CLUSTER, -(-n // _FPS_CLUSTER_SHARE))
+    share = -(-n // blocks)
+    least = _FPS_PPT[0] if blocks == 1 else _FPS_CLUSTER_MIN_PPT
+    ppt = next((p for p in _FPS_PPT if p >= least and -(-share // p) <= _FPS_THREADS),
+               _FPS_PPT[-1])
+    threads = max(32, -(-share // (32 * ppt)) * 32)
+    cluster = -(-n // (threads * ppt))
+    return FpsPlan("block" if cluster == 1 else "cluster", cluster, threads, ppt)
 
 
 def fps_cuda(points: torch.Tensor, n_samples: int) -> torch.Tensor:
@@ -92,15 +129,17 @@ def fps_cuda(points: torch.Tensor, n_samples: int) -> torch.Tensor:
     if points.data_ptr() % 4:
         raise ValueError("points must be 4-byte aligned")
     lib = _build.library()
+    plan = _fps_plan(n)
     out = torch.empty((b, n_samples), dtype=torch.int32, device=points.device)
     scratch = None
-    if not lib.mt_fps_fits_shared(n):  # the running minimum lives in device memory
+    if plan.route == "device":  # the running minimum lives in device memory
         scratch = torch.empty((b, n), dtype=torch.float32, device=points.device)
     with torch.cuda.device(points.device):  # the launch goes to its current stream
         rc = lib.mt_fps(
             points.data_ptr(), *points.stride(),
             None if scratch is None else scratch.data_ptr(), out.data_ptr(),
-            b, n, n_samples, _fps_threads(n), torch.cuda.current_stream().cuda_stream,
+            b, n, n_samples, plan.cluster, plan.threads, plan.ppt,
+            torch.cuda.current_stream().cuda_stream,
         )
     _fb._raise_on(rc, "fps")
     fps_cuda.launches += 1

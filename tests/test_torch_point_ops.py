@@ -9,6 +9,9 @@ kernel is held against that plain version on the card, in
 ``tests/test_torch_point_ops_cuda.py``).
 """
 
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -65,6 +68,68 @@ def test_fps_duplicated_points_and_more_samples_than_distinct_points():
     np.testing.assert_array_equal(got, np.asarray(jpo._fps_xla(jnp.asarray(pts), 12)))
     assert (got[:, :8] < 8).all()  # the first copy of each distinct point
     assert (got[:, 8:] == 0).all()  # then every minimum is 0: index 0
+
+
+def test_fps_plain_index_exact_vs_pallas_and_xla_past_one_block():
+    """One cloud of 20,000 points: past the 14,336 of the old shared-memory
+    route, on a cluster of the kernel's plan."""
+    pts = _cloud(31, 1, 20000)
+    got = po.furthest_point_sample(torch.tensor(pts), 32).numpy()
+    np.testing.assert_array_equal(
+        got, np.asarray(jpo._fps_pallas(jnp.asarray(pts), 32, interpret=True)))
+    np.testing.assert_array_equal(got, np.asarray(jpo._fps_xla(jnp.asarray(pts), 32)))
+    assert po._fps_plan(20000).route == "cluster"
+
+
+def test_fps_ties_across_the_blocks_of_a_cluster():
+    """64 distinct points repeated 128 times (N = 8192): each point has a
+    copy in every block of the kernel's cluster, so the argmax must take the
+    smallest index among equal maxima across blocks; after the 64 first
+    copies every minimum is +0 and index 0 wins."""
+    pts = np.tile(_cloud(32, 2, 64), (1, 128, 1))
+    plan = po._fps_plan(pts.shape[1])
+    assert plan.route == "cluster" and plan.threads * plan.ppt < pts.shape[1]
+    got = po.furthest_point_sample(torch.tensor(pts), 70).numpy()
+    np.testing.assert_array_equal(
+        got, np.asarray(jpo._fps_pallas(jnp.asarray(pts), 70, interpret=True)))
+    np.testing.assert_array_equal(got, np.asarray(jpo._fps_xla(jnp.asarray(pts), 70)))
+    assert (got[:, :64] < 64).all() and (got[:, 64:] == 0).all()
+
+
+def _csrc_constant(name):
+    src = (Path(po.__file__).parent / "csrc" / "point_ops.cu").read_text()
+    return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+
+def test_fps_plan_covers_every_cloud_size():
+    """For every N from 1 to past the device-route limit the plan holds the
+    cloud: C blocks of threads x ppt points cover N and the last block is not
+    empty, threads are whole warps within the kernel's launch bounds, ppt is
+    one the kernel is compiled for, C is at most the largest cluster, and the
+    route switches where the source says: one block up to 2,048 points,
+    clusters up to FPS_MAX_CLUSTER x FPS_BLOCK_MAX, the device route after."""
+    block_max, max_cluster = _csrc_constant("FPS_BLOCK_MAX"), _csrc_constant("FPS_MAX_CLUSTER")
+    assert (block_max, max_cluster) == (po.FPS_BLOCK_MAX, po.FPS_MAX_CLUSTER)
+    assert po.FPS_CLUSTER_MAX == block_max * max_cluster == 65536
+    routes = set()
+    for n in range(1, po.FPS_CLUSTER_MAX + 2049):
+        plan = po._fps_plan(n)
+        routes.add(plan.route)
+        if n > po.FPS_CLUSTER_MAX:
+            assert plan == po.FpsPlan("device", 0, 1024, 0), n
+            continue
+        per_block = plan.threads * plan.ppt
+        assert plan.ppt in (4, 8, 16), (n, plan)
+        assert plan.threads % 32 == 0 and 32 <= plan.threads <= (512 if plan.ppt == 16 else 1024)
+        assert per_block <= block_max and 1 <= plan.cluster <= max_cluster, (n, plan)
+        assert plan.cluster == -(-n // per_block) and (plan.cluster - 1) * per_block < n, (n, plan)
+        assert plan.route == ("block" if n <= 2048 else "cluster"), (n, plan)
+        assert (plan.cluster == 1) == (n <= 2048)
+    assert routes == {"block", "cluster", "device"}
+    # the point paths' clouds run on one block
+    assert po._fps_plan(1024) == po.FpsPlan("block", 1, 256, 4)
+    assert po._fps_plan(2048) == po.FpsPlan("block", 1, 512, 4)
+    assert po._fps_plan(16384) == po.FpsPlan("cluster", 8, 256, 8)
 
 
 def test_fps_takes_strided_and_low_precision_input():
