@@ -2,9 +2,11 @@
 serving path, the ViT-B16 image training step, the ViT-B16 video classifier
 (16 x 224^2 clip, 1568 tokens; served and trained, frozen-encoder and full
 fine-tune), the ViT-B16 point-cloud models (classifier served and trained,
-segmenter served, masked point ViT trained, multi-view classifier served)
-and a whole ViT-L14 image classifier (served and trained) on one NVIDIA GPU
-through the hand-written kernels.
+segmenter served, masked point ViT trained, multi-view classifier served),
+a whole ViT-L14 image classifier (served and trained), and all 12
+modalities of ``pipeline.Data2Seq`` with the fused multimodal trio, the
+bucket ladder and the audio, hyper-spectral, tabular and time-series models
+(served) on one NVIDIA GPU through the hand-written kernels.
 
     python3 chip_smoke.py [--seed N] [--profile]
     python3 chip_smoke.py --bwd-times      # only the flash backward and video-step times
@@ -19,8 +21,9 @@ Phases (any failed check raises, so the process exits non-zero):
    the registers and spills of the wgmma and FPS kernels;
 3. hold each kernel against its plain PyTorch version, computed in fp32
    from the same bf16 inputs, at the shapes of the image path (T = 197), of
-   the point classifier (T = 257) and of ViT-L14 (D = 1024, 16 heads of 64,
-   T = 257); the backward kernel is launched twice and must repeat bit for
+   the point classifier (T = 257), of ViT-L14 (D = 1024, 16 heads of 64,
+   T = 257) and of the pipeline (T = 1 ... 256, masked where its paths
+   mask); the backward kernel is launched twice and must repeat bit for
    bit;
 4. hold both autograd Functions (attention and MLP sublayer) against
    autograd through the plain versions in fp32;
@@ -48,8 +51,9 @@ Phases (any failed check raises, so the process exits non-zero):
    against their plain versions at B*H = 12 and 96, T = 1568, head_dim 64,
    dense, ragged and with a fully masked sample, at the segmenter's T = 513
    (a last tile of one row), at the edges of the bf16 backward's 128-row
-   blocks (T = 127, 128, 129, 257), at head_dim 32 and 128, in bf16 and
-   fp32, and the autograd Function against fp32 autograd; serve uint8 clips
+   blocks (T = 127, 128, 129, 257), at head_dim 32 and 128, at the
+   pipeline's T = 1212 and 2876 and its ragged 1600 / 3072 buckets, in bf16
+   and fp32, and the autograd Function against fp32 autograd; serve uint8 clips
    of b = 1 and 8 and one 15-view request through a full-width
    ``VideoClassifier``; take 4 AdamW steps of each track at batch 8 through
    ``Trainer``, and one full-track step with ``remat=True`` and one with
@@ -73,10 +77,25 @@ Phases (any failed check raises, so the process exits non-zero):
     against the plain versions on the card; time the kernel, the forwards
     and one step of each track (``--profile``: also the masked point ViT
     step);
-11. the host: the C++ host runtime (grid subsampling, kNN) against its
+11. the modalities at ViT-B16 width, BF16: each of the 12 modalities
+    (text, tabular, graph, time series, IMU, hyper-spectral, image, x-ray,
+    infrared, point, audio, video; the batches and raw schemas of
+    scripts/bench_modalities.py) through ``Data2Seq``, 3 requests straight
+    into the encoder (T = 1 ... 1568) and 3 padded to their bucket through
+    ``encode_bucketed_pooled``, with each modality's seq/s; the README trio
+    (video, audio from waveforms, time series: 2876 tokens) through the
+    multimodal classifier under BF16 and FP32, with its batch-1 latency; one
+    ragged call at every bucket 64 ... 3072; the audio classifier from
+    waveforms (fbank on the card against its numpy oracle), the
+    hyper-spectral classifier in ViT and CAF modes, the tabular classifier
+    and the time-series forecaster; each against the plain versions on the
+    card, launches held; the CLIP text tower against itself in float64;
+    the fused sublayers and flash kernels are held at these paths' shapes in
+    phases 3 and 9;
+12. the host: the C++ host runtime (grid subsampling, kNN) against its
     numpy twins, and host-to-device copy times of an image and a cloud
     batch;
-12. print one JSON line describing the kernels, then the result line.
+13. print one JSON line describing the kernels, then the result line.
 
 It imports nothing of JAX. Without a CUDA card it raises before printing
 any result.
@@ -339,6 +358,16 @@ def _ragged_bias(dev):
     return torch.where(keep, 0.0, fb.NEG_INF).float()
 
 
+def _prefix_bias(b: int, t: int, dev):
+    """Key bias of a ragged batch: sample i keeps its first
+    max(1, t (i + 1) / b) tokens."""
+    from metatransformer_tpu_torch.ops import fused_block as fb
+
+    kept = torch.tensor([max(1, t * (i + 1) // b) for i in range(b)], device=dev)
+    keep = torch.arange(t, device=dev)[None, :] < kept[:, None]
+    return torch.where(keep, 0.0, fb.NEG_INF).float()
+
+
 def phase_kernels(seed: int, dev) -> dict:
     worst = {}
     for kind in ("attn_sublayer", "mlp_sublayer"):
@@ -348,6 +377,12 @@ def phase_kernels(seed: int, dev) -> dict:
             cases.append((8, T, _ragged_bias(dev)))
         # the point classifier's requests and its training batch
         cases += [(b, POINT_T, None) for b in POINT_SERVE_BATCHES + (POINT_TRAIN_BATCH,)]
+        # Data2Seq's token counts up to 256 at their serving batch, and the
+        # masked ones: the graph's keep-mask and bucket, the ragged buckets
+        cases += [(b, t, None) for b, t in
+                  sorted({(b, t) for b, t, _ in MODALITY_SPECS.values() if t <= 256})]
+        if kind == "attn_sublayer":
+            cases += [(b, t, _prefix_bias(b, t, dev)) for b, t in MODALITY_MASKED_SHAPES]
         worst[kind] = 0.0
         for b, t, bias in cases:
             args = _sublayer_inputs(kind, b, seed + b + t, dev, t)
@@ -1033,6 +1068,11 @@ FLASH_CASES = [  # b, h, t, head_dim, dtype, mask: False (dense), True (ragged) 
     (2, 4, 257, 64, BF, False), (2, 4, 257, 64, BF, True),
     (4, 6, VT, 64, F32, False), (1, 12, VT, 64, F32, True),
     (2, 4, 577, 32, F32, True), (2, 2, 577, 128, F32, True),
+    # Data2Seq's long sequences: audio's 1212 tokens, the fused trio's 2876
+    # (the last key tile holds 60 rows; bf16 and the fp32 route), the 1600
+    # and 3072 buckets ragged
+    (8, 12, 1212, 64, BF, False), (8, 12, 2876, 64, BF, False), (8, 12, 2876, 64, F32, False),
+    (4, 12, 1600, 64, BF, True), (4, 12, 3072, 64, BF, True),
 ]
 
 
@@ -2211,14 +2251,386 @@ def phase_point_times(model, seg_model, seed: int, dev, profile: bool):
     torch.cuda.empty_cache()
 
 
+# --------------------------------------------------------------------------
+# Data2Seq, fuse-then-encode, buckets and the dense-input modalities
+# --------------------------------------------------------------------------
+
+# Each modality's batch, unpadded token count and bucket, with the raw
+# schema of _modality_raw and the tokenizer configs of _modality_config:
+# those of scripts/bench_modalities.py (copied: that script imports JAX).
+# Graphs have ragged node and edge counts, so the tokenizer's keep-mask holds
+# padded slots.
+MODALITY_SPECS = {  # name: (batch, tokens, bucket)
+    "text": (256, 1, 64), "tabular": (512, 14, 64), "graph": (64, 82, 128),
+    "time-series": (256, 96, 128), "imu": (256, 256, 256), "hyper": (64, 201, 256),
+    "image": (128, 196, 256), "x-ray": (128, 196, 256), "infrared": (128, 196, 256),
+    "point": (64, 256, 256), "audio": (8, 1212, 1600), "video": (8, 1568, 1600),
+}
+MODALITY_REQUESTS, MODALITY_TIMING_REPS = 3, 10
+# The README trio (video, audio, time series): one sample is 1568 + 1212 + 96
+# = 2876 tokens; the audio arrives as a waveform of 400 + 1023 * 160 samples,
+# 1024 fbank frames.
+FUSE_BATCH, FUSE_T, FUSE_SAMPLES = 8, 2876, 164_080
+BUCKET_BATCH = 4
+# #1 under a keep-mask at the pipeline's shapes (b, T): the graph's own mask,
+# its bucket, and the ragged buckets up to 256.
+MODALITY_MASKED_SHAPES = [(64, 82), (64, 128)] + [(BUCKET_BATCH, t) for t in (64, 128, 256)]
+# Batches of the modality models' forwards and of the CLIP text tower alone.
+MODEL_BATCHES = {"audio": 8, "hyper": 64, "tabular": 512, "time-series": 32, "text": 256}
+# The text tower (fp32) on the card vs the same tower in float64 there: the
+# tolerance of the tower's CPU parity test (tests/test_torch_text.py). TF32
+# products would miss it.
+TEXT_TOL = 1e-4
+FBANK_TOL = 1e-4  # log-mel on the card vs the numpy oracle (tests/test_torch_audio.py)
+
+
+def _modality_config(name: str):
+    """The tokenizer configs scripts/bench_modalities.py gives where the
+    defaults carry no schema; None: the facade's default at width D."""
+    from metatransformer_tpu_torch.tokenizers import hyper, image, point, tabular, time_series
+
+    return {
+        "tabular": lambda: tabular.TabularTokenizerConfig(vocab_sizes=(8,) * 14, dim=D),
+        "time-series": lambda: time_series.TimeSeriesConfig(c_in=7, dim=D),
+        "imu": lambda: time_series.TimeSeriesConfig(c_in=6, dim=D),
+        "hyper": lambda: hyper.HyperTokenizerConfig(img_size=1, near_band=49, num_tokens=200,
+                                                    dim=D),
+        "infrared": lambda: image.ImageTokenizerConfig(in_channels=1, dim=D),
+        # bf16 products in the conv stack, as the BF16 encoder it feeds
+        "point": lambda: point.PointTokenizerConfig(precision="default"),
+    }.get(name, lambda: None)()
+
+
+def _modality_raw(name: str, seed: int, dev):
+    """One raw request of ``name`` at its batch, made on the card."""
+    b = MODALITY_SPECS[name][0]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    randn = lambda *s: torch.randn(*s, generator=g, device=dev)
+    ints = lambda hi, *s: torch.randint(0, hi, s, generator=g, device=dev)
+    if name == "graph":
+        return {"node_data": ints(16, b, 32, 9), "edge_data": ints(4, b, 48, 3),
+                "edge_index": ints(32, b, 48, 2),
+                "node_num": 24 + torch.arange(b, device=dev) % 9,
+                "edge_num": 40 + torch.arange(b, device=dev) % 9,
+                "lap_eigvec": randn(b, 32, 16)}
+    return {
+        "text": lambda: ints(48_999, b, 77) + 1, "tabular": lambda: ints(8, b, 14),
+        "time-series": lambda: randn(b, 96, 7), "imu": lambda: randn(b, 256, 6),
+        "hyper": lambda: randn(b, 200, 49), "image": lambda: randn(b, 224, 224, 3),
+        "x-ray": lambda: randn(b, 224, 224, 3), "infrared": lambda: randn(b, 224, 224, 1),
+        "point": lambda: randn(b, 1024, 3) * 0.5, "audio": lambda: randn(b, 1024, 128),
+        "video": lambda: randn(b, 16, 224, 224, 3),
+    }[name]()
+
+
+def _expected_launches(t: int, depth: int, fps: bool = False) -> dict:
+    """The launches one BF16 pass of ViT-B16 over ``t`` tokens makes: 12 of
+    each fused sublayer up to 256 tokens (the reference's gate), 12 of the
+    flash forward from 512; one FPS launch for a cloud."""
+    from metatransformer_tpu_torch.core import encoder as enc
+
+    impl = enc._resolve_impl(enc.BASE, t, enc.BF16)
+    if impl == "fused":
+        counts = {"attn_sublayer": depth, "mlp_sublayer": depth}
+    elif impl == "flash":
+        counts = {"flash_fwd": depth}
+    else:
+        raise AssertionError(f"T={t} resolves to {impl!r}, off every kernel")
+    if fps:
+        counts["fps"] = 1
+    return counts
+
+
+def _held(what: str, fn, requests, expected: dict, shape, keep=None) -> dict:
+    """Answer each request with the kernels (launches of each held to
+    ``expected``), then again with the plain versions on the card; outputs
+    finite, of ``shape`` and within the serving tolerance (at the positions
+    ``keep(request)`` names, where given). Returns the run's launches."""
+    from metatransformer_tpu_torch import ops
+
+    with torch.no_grad():
+        ops.reset_launch_counts()
+        answers, per_request = [], []
+        for raw in requests:
+            answers.append(fn(raw))
+            per_request.append(ops.launch_counts())
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+        with _plain_versions():
+            want = [fn(raw) for raw in requests]
+    _check_launches_per_request(per_request, expected, what)
+    errs, top = [], 0.0
+    for raw, got, ref in zip(requests, answers, want):
+        if tuple(got.shape) != tuple(shape) or not torch.isfinite(got).all():
+            raise AssertionError(f"{what}: output {tuple(got.shape)} (expected {shape}), finite "
+                                 f"{bool(torch.isfinite(got).all())}")
+        if keep is not None:
+            m = keep(raw)
+            got, ref = got[m], ref[m]
+        errs.append((got.float() - ref.float()).abs().max().item())
+        top = max(top, ref.float().abs().max().item())
+        torch.testing.assert_close(got.float(), ref.float(), atol=LOGIT_ATOL, rtol=LOGIT_RTOL)
+    print(f"{what}: {len(requests)} requests, output {tuple(shape)}, max |kernel - plain| "
+          f"{max(errs):.6g} (tol {LOGIT_ATOL} / {LOGIT_RTOL}, max |plain| {top:.4g}), launches "
+          f"{launches}", flush=True)
+    return launches
+
+
+def phase_modalities(seed: int, dev, profile: bool = False) -> dict:
+    """All 12 modalities of ``pipeline.MODALITIES`` through ``Data2Seq`` at
+    ViT-B16 width (seeded weights; one shared encoder, cast once to BF16),
+    each answering MODALITY_REQUESTS requests twice: unpadded (the tokens
+    straight into the encoder, mean-pooled: T from 1 to 1568) and bucketed
+    (``pad_to_bucket``, then ``encode_bucketed_pooled``; the graph with its
+    tokenizer's own keep-mask). Pooled features held against the plain
+    versions on the card; then each modality's seq/s, unpadded (with
+    ``profile``: device time by kernel of the text and audio passes).
+    Returns the launches of each pass by path name."""
+    from metatransformer_tpu_torch import pipeline
+    from metatransformer_tpu_torch.core import encoder as enc
+    from metatransformer_tpu_torch.tokenizers import graph as graph_tok
+
+    ecfg = enc.BASE
+    enc_params = enc.cast_params(enc.init(ecfg, torch.Generator().manual_seed(seed)), enc.BF16)
+    launches, rates = {}, {}
+    for i, (name, (b, t, bucket)) in enumerate(MODALITY_SPECS.items()):
+        facade = pipeline.Data2Seq(name, D, config=_modality_config(name))
+        tok_params = facade.init(torch.Generator().manual_seed(seed + 1 + i))  # on the card
+        requests = [_modality_raw(name, seed + 100 * i + r, dev) for r in range(MODALITY_REQUESTS)]
+
+        def unpadded(raw):
+            tokens = facade(tok_params, raw)
+            if tuple(tokens.shape) != (b, t, D):
+                raise AssertionError(f"{name}: tokens {tuple(tokens.shape)}, expected {(b, t, D)}")
+            return enc.encode(enc_params, tokens, ecfg, precision=enc.BF16).float().mean(dim=1)
+
+        def bucketed(raw):
+            if name == "graph":
+                tokens, keep = graph_tok.apply(tok_params, raw, facade.config)
+            else:
+                tokens, keep = facade(tok_params, raw), None
+            tokens, keep = pipeline.pad_to_bucket(tokens, keep)
+            if tokens.shape[1] != bucket:
+                raise AssertionError(f"{name}: bucket {tokens.shape[1]}, expected {bucket}")
+            return pipeline.encode_bucketed_pooled(enc_params, tokens, keep, ecfg, enc.BF16)
+
+        fps = name == "point"
+        launches[f"modalities_{name}"] = _held(
+            f"modality {name} b={b} T={t} unpadded", unpadded, requests,
+            _expected_launches(t, ecfg.depth, fps), (b, D))
+        launches[f"bucketed_{name}"] = _held(
+            f"modality {name} b={b} T={t} -> bucket {bucket}", bucketed, requests,
+            _expected_launches(bucket, ecfg.depth, fps), (b, D))
+        with torch.no_grad():
+            ms = _median_ms(lambda: unpadded(requests[0]), MODALITY_TIMING_REPS)
+        rates[name] = b * 1000.0 / ms
+        if profile and name in ("text", "audio"):
+            with torch.no_grad():
+                _profile_step(lambda: unpadded(requests[0]), f"modality {name} b={b} unpadded")
+        print(f"modality {name} b={b} T={t}: {ms:.4f} ms, {rates[name]:.2f} seq/s (median of "
+              f"{MODALITY_TIMING_REPS}, raw on the card -> Data2Seq -> BF16 encoder -> "
+              f"mean-pooled features)", flush=True)
+        del requests, tok_params, facade
+        torch.cuda.empty_cache()
+    print(f"modality seq/s: {json.dumps(rates)}", flush=True)
+    return launches
+
+
+def phase_fuse(seed: int, dev, profile: bool = False) -> dict:
+    """The README trio through ``multimodal_classifier.forward`` at
+    b = FUSE_BATCH (uint8 clips of 16 x 224^2, waveforms whose fbank runs on
+    the card, 96 x 7 series): 2876 fused tokens, 12 flash-forward launches,
+    under BF16 (the bf16 kernel) and FP32 (the fp32 route), logits against
+    the plain versions; then its times: BF16 at b = FUSE_BATCH and 1, FP32
+    at b = FUSE_BATCH (with ``profile``: device time by kernel of the BF16
+    runs). Returns the launches of each policy's run."""
+    from metatransformer_tpu_torch.core import encoder as enc
+    from metatransformer_tpu_torch.models import multimodal_classifier as mm
+    from metatransformer_tpu_torch.ops import fbank
+
+    cfg = mm.MultimodalClassifierConfig(tokenizers=(None, None, _modality_config("time-series")))
+    toks = [f.config for f in cfg.facades().values()]
+    if toks[0].num_patches + toks[1].num_patches + 96 != FUSE_T:
+        raise AssertionError("the trio does not give 2876 tokens")
+    params = mm.init(cfg, torch.Generator().manual_seed(seed))  # lands on the card
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    requests = [{
+        "video": torch.randint(0, 256, (FUSE_BATCH, 16, 224, 224, 3), generator=g, device=dev,
+                               dtype=torch.uint8),
+        "audio": torch.randn(FUSE_BATCH, FUSE_SAMPLES, generator=g, device=dev) * 0.1,
+        "time-series": torch.randn(FUSE_BATCH, 96, 7, generator=g, device=dev),
+    }]
+
+    def trio(precision):
+        def run(raw):
+            wave = raw["audio"] - raw["audio"].mean(dim=-1, keepdim=True)
+            return mm.forward(params, {**raw, "audio": fbank.fbank(wave)}, cfg, precision)
+        return run
+
+    launches = {}
+    for tag, precision in (("bf16", enc.BF16), ("fp32", enc.FP32)):
+        launches[f"fuse_{tag}"] = _held(
+            f"fused trio {tag} b={FUSE_BATCH} T={FUSE_T}", trio(precision), requests,
+            {"flash_fwd": cfg.encoder.depth}, (FUSE_BATCH, cfg.num_classes))
+    one = {k: v[:1] for k, v in requests[0].items()}
+    with torch.no_grad():
+        for tag, precision, b, raw in (("BF16", enc.BF16, FUSE_BATCH, requests[0]),
+                                       ("BF16", enc.BF16, 1, one),
+                                       ("FP32", enc.FP32, FUSE_BATCH, requests[0])):
+            ms = _median_ms(lambda: trio(precision)(raw), MODALITY_TIMING_REPS)
+            print(f"fused trio forward {tag} b={b} T={FUSE_T}: {ms:.4f} ms, "
+                  f"{b * 1000.0 / ms:.2f} seq/s (median of {MODALITY_TIMING_REPS}, raw on the "
+                  f"card -> fbank -> Data2Seq x 3 -> encoder -> logits)", flush=True)
+            if profile and tag == "BF16":
+                _profile_step(lambda: trio(precision)(raw), f"fused trio BF16 b={b}")
+    del params, requests, one
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_buckets(seed: int, dev) -> dict:
+    """One ragged ``pad_to_bucket`` + ``encode_bucketed`` call at each bucket
+    of the ladder: BUCKET_BATCH samples of (bucket - 3) tokens, sample i
+    keeping the first (i + 1) / BUCKET_BATCH of them; kept positions held
+    against the plain versions. Buckets up to 256 run the fused sublayers,
+    512 and up the flash forward. Returns the launches of the whole ladder."""
+    from metatransformer_tpu_torch import pipeline
+    from metatransformer_tpu_torch.core import encoder as enc
+
+    ecfg = enc.BASE
+    enc_params = enc.cast_params(enc.init(ecfg, torch.Generator().manual_seed(seed)), enc.BF16)
+    total = {}
+    for bucket in pipeline.BUCKETS:
+        t = bucket - 3
+        g = torch.Generator(device=dev).manual_seed(seed + bucket)
+        x = torch.randn(BUCKET_BATCH, t, D, generator=g, device=dev)
+        keep = _prefix_bias(BUCKET_BATCH, t, dev) == 0
+        tokens, mask = pipeline.pad_to_bucket(x, keep)
+        counts = _held(
+            f"bucket {bucket} b={BUCKET_BATCH} ragged", lambda m: pipeline.encode_bucketed(
+                enc_params, tokens, m, ecfg, enc.BF16), [mask],
+            _expected_launches(bucket, ecfg.depth), (BUCKET_BATCH, bucket, D), keep=lambda m: m)
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+    torch.cuda.empty_cache()
+    return total
+
+
+def phase_modality_models(seed: int, dev) -> dict:
+    """One forward of each modality model at ViT-B16 width (seeded weights,
+    BF16) against the plain versions: the audio classifier from waveforms at
+    b = 8 (35 classes; fbank on the card, held against the numpy oracle),
+    the hyper-spectral classifier at b = 64 in ViT and CAF modes (16
+    classes; CAF's skip mix moved off the identity so that it acts), the
+    tabular classifier at b = 512 and the time-series forecaster at b = 32
+    (96 -> 96, 7 channels); then the CLIP text tower at b = 256 against
+    itself in float64 on the card, and the audio batch-1 latency. Returns
+    the launches of each model's run."""
+    from metatransformer_tpu_torch.core import encoder as enc
+    from metatransformer_tpu_torch.models import audio_classifier as ac
+    from metatransformer_tpu_torch.models import hyper_classifier as hc
+    from metatransformer_tpu_torch.models import tabular_classifier as tc
+    from metatransformer_tpu_torch.models import time_series as tsm
+    from metatransformer_tpu_torch.ops import fbank
+    from metatransformer_tpu_torch.tokenizers import hyper, tabular, text
+
+    g = torch.Generator(device=dev).manual_seed(seed + 3)
+    randn = lambda *s: torch.randn(*s, generator=g, device=dev)
+    ints = lambda hi, *s: torch.randint(0, hi, s, generator=g, device=dev)
+    gen = lambda k: torch.Generator().manual_seed(seed + k)
+    depth = enc.BASE.depth
+    fused = {"attn_sublayer": depth, "mlp_sublayer": depth}
+    launches = {}
+
+    cfg = ac.AudioClassifierConfig()
+    params = ac.init(cfg, gen(1))
+    params["encoder"] = enc.cast_params(params["encoder"], enc.BF16)
+    nb = MODEL_BATCHES
+    wave = randn(nb["audio"], FUSE_SAMPLES) * 0.1
+    spec = fbank.fbank(wave[:1])
+    want = torch.from_numpy(fbank.fbank_np(wave[0].cpu().numpy())).to(dev)
+    err = (spec[0] - want).abs().max().item()
+    print(f"fbank on the card, 164080 samples -> {tuple(spec.shape)}: max |card - numpy oracle| "
+          f"{err:.4g} (tol {FBANK_TOL})", flush=True)
+    torch.testing.assert_close(spec[0], want, atol=FBANK_TOL, rtol=FBANK_TOL)
+    serve = lambda w: ac.forward_waveform(params, w, cfg, enc.BF16)
+    launches["audio_serve"] = _held(
+        f"audio classifier b={nb['audio']} T=1212 (waveform -> logits)", serve, [wave],
+        {"flash_fwd": depth}, (nb["audio"], cfg.num_classes))
+    with torch.no_grad():
+        for b in (nb["audio"], 1):
+            w = wave[:b]
+            ms = _median_ms(lambda: serve(w), MODALITY_TIMING_REPS)
+            print(f"audio classifier forward BF16 b={b}: {ms:.4f} ms, {b * 1000.0 / ms:.2f} seq/s "
+                  f"(median of {MODALITY_TIMING_REPS}, waveform on the card -> fbank -> logits)",
+                  flush=True)
+    del params, wave
+
+    tok_cfg = hyper.HyperTokenizerConfig(img_size=1, near_band=49, num_tokens=200, dim=D)
+    x = randn(nb["hyper"], 200, 49)
+    for mode in ("vit", "caf"):
+        cfg = hc.HyperClassifierConfig(tokenizer=tok_cfg, mode=mode)
+        params = hc.init(cfg, gen(2))
+        if mode == "caf":
+            params["skipcat_w"] += 0.02 * torch.randn(params["skipcat_w"].shape,
+                                                      generator=gen(3)).to(dev)
+        launches[f"hyper_{mode}"] = _held(
+            f"hyper classifier {mode} b={nb['hyper']} T=201",
+            lambda r: hc.forward(params, r, cfg, enc.BF16), [x], fused,
+            (nb["hyper"], cfg.num_classes))
+        del params
+
+    cfg = tc.TabularClassifierConfig(tabular.TabularTokenizerConfig(vocab_sizes=(8,) * 14, dim=D))
+    params = tc.init(cfg, gen(4))
+    launches["tabular_serve"] = _held(
+        f"tabular classifier b={nb['tabular']} T=14",
+        lambda r: tc.forward(params, r, cfg, precision=enc.BF16), [ints(8, nb["tabular"], 14)],
+        fused, (nb["tabular"], cfg.num_classes))
+    del params
+
+    cfg = tsm.TimeSeriesModelConfig()  # long-term forecast, 96 -> 96, 7 channels
+    params = tsm.init(cfg, gen(5))
+    b = nb["time-series"]
+    marks = lambda t: torch.stack([ints(n, b, t) for n in (13, 32, 7, 24)], dim=-1)
+    x_enc = randn(b, 96, 7)
+    batch = {"x_enc": x_enc, "x_mark_enc": marks(96),  # label length 48, then 96 to predict
+             "x_dec": torch.cat([x_enc[:, -48:], torch.zeros(b, 96, 7, device=dev)], dim=1),
+             "x_mark_dec": marks(144)}
+    launches["ts_forecast"] = _held(
+        f"time-series forecast b={b} 96 -> 96 (encoder T=96)",
+        lambda r: tsm.forward(params, r["x_enc"], cfg, r["x_mark_enc"], r["x_dec"],
+                              r["x_mark_dec"], enc.BF16), [batch], fused, (b, 96, 7))
+    del params
+
+    cfg = text.TextTokenizerConfig()
+    params = text.init(cfg, gen(6))
+    b = nb["text"]
+    ids = ints(48_999, b, 77) + 1
+    with torch.no_grad():
+        got = text.encode_text(params, ids, cfg)
+        want = text.encode_text({k: v.double() for k, v in params.items()}, ids, cfg)
+        ms = _median_ms(lambda: text.encode_text(params, ids, cfg), MODALITY_TIMING_REPS)
+    err = (got.double() - want).abs().max().item()
+    print(f"CLIP text tower b={b} x 77 (12 x 512, fp32): {tuple(got.shape)}, max |fp32 - "
+          f"float64| {err:.4g} (tol {TEXT_TOL}); {ms:.4f} ms, {b * 1000.0 / ms:.2f} texts/s",
+          flush=True)
+    if got.shape != (b, cfg.proj_dim) or not torch.isfinite(got).all():
+        raise AssertionError(f"text tower: {tuple(got.shape)} or non-finite")
+    torch.testing.assert_close(got.double(), want, atol=TEXT_TOL, rtol=TEXT_TOL)
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
                     help="also print device time by kernel of one full-track image step, "
                          "one video forward at b=8, one full-track video step, the point "
-                         "and segmenter forwards at their largest batch and one full-track "
-                         "point step")
+                         "and segmenter forwards at their largest batch, one full-track "
+                         "point step, the text and audio modalities and the fused trio at "
+                         "b=8 and b=1")
     ap.add_argument("--bwd-times", action="store_true",
                     help="only build and time the flash backward kernels and one step of "
                          "each video track, to compare checkouts in turns; prints no result")
@@ -2279,6 +2691,11 @@ def main() -> None:
     pinned_launches = phase_point_train_pinned(args.seed, dev)
     point_mae_launches = phase_point_mae(args.seed, dev)
     multiview_launches = phase_multiview_serve(args.seed, dev)
+
+    modality_launches = phase_modalities(args.seed, dev, args.profile)
+    fuse_launches = phase_fuse(args.seed, dev, args.profile)
+    bucket_launches = phase_buckets(args.seed, dev)
+    model_launches = phase_modality_models(args.seed, dev)
     phase_native_host(args.seed)
     phase_host_copies(args.seed, dev)
 
@@ -2298,6 +2715,10 @@ def main() -> None:
         "seg_serve": seg_serve_launches,
         "point_mae": point_mae_launches,
         "multiview_serve": multiview_launches,
+        **modality_launches,
+        **fuse_launches,
+        "buckets": bucket_launches,
+        **model_launches,
     }
     on_path = {  # the kernels each path must have gone through
         "serve": ("attn_sublayer", "mlp_sublayer"),
@@ -2317,7 +2738,18 @@ def main() -> None:
         "seg_serve": ("fps", "flash_fwd"),
         "point_mae": ("fps",),
         "multiview_serve": ("attn_sublayer", "mlp_sublayer"),
+        "fuse_bf16": ("flash_fwd",), "fuse_fp32": ("flash_fwd",),
+        "buckets": ("attn_sublayer", "mlp_sublayer", "flash_fwd"),
+        "audio_serve": ("flash_fwd",),
+        **{path: ("attn_sublayer", "mlp_sublayer")
+           for path in ("hyper_vit", "hyper_caf", "tabular_serve", "ts_forecast")},
     }
+    for name, (_, t, bucket) in MODALITY_SPECS.items():
+        depth, fps = 12, name == "point"
+        on_path[f"modalities_{name}"] = tuple(_expected_launches(t, depth, fps))
+        on_path[f"bucketed_{name}"] = tuple(_expected_launches(bucket, depth, fps))
+    if set(on_path) != set(by_path):
+        raise AssertionError(f"paths without kernels named: {set(by_path) ^ set(on_path)}")
     for path, kinds in on_path.items():
         for kind in kinds:
             if by_path[path][kind] <= 0:

@@ -78,6 +78,12 @@ CASES = [
     (2, 1568, 2, 64, torch.float32, True),
     (2, 300, 2, 32, torch.float32, False),
     (2, 130, 2, 128, torch.float32, True),
+    # Data2Seq's long sequences: audio's 1212 tokens, the fused trio's 2876
+    # (the last key tile holds 60 rows) in bf16 and fp32, a ragged 3072 bucket
+    (2, 1212, 2, 64, torch.bfloat16, False),
+    (1, 2876, 2, 64, torch.bfloat16, False),
+    (1, 2876, 2, 64, torch.float32, False),
+    (3, 3072, 2, 64, torch.bfloat16, True),
 ]
 
 
@@ -132,6 +138,8 @@ FORWARD_CASES = [
     (2, 127, 4, 64, False), (2, 127, 4, 64, True), (2, 128, 4, 64, False),
     (2, 128, 4, 64, True), (2, 129, 4, 64, False), (2, 129, 4, 64, True),
     (2, 257, 4, 64, False), (2, 257, 4, 64, True),
+    # Data2Seq: audio, the fused trio, the ragged 3072 bucket
+    (8, 1212, 12, 64, False), (8, 2876, 12, 64, False), (4, 3072, 12, 64, True),
 ]
 
 

@@ -55,7 +55,11 @@ def _max_err(got, want):
 @pytest.mark.parametrize(
     "b, t, d, h, masked",
     [(3, 197, 768, 12, False), (3, 197, 768, 12, True), (2, 17, 256, 8, False),
-     (2, 100, 1024, 8, True), (4, 257, 768, 12, False), (4, 257, 768, 12, True)],
+     (2, 100, 1024, 8, True), (4, 257, 768, 12, False), (4, 257, 768, 12, True),
+     # Data2Seq's token counts below one 64-row tile and past three: text
+     # (one token), tabular (14), hyper-spectral (201)
+     (4, 1, 768, 12, False), (3, 14, 768, 12, False), (3, 14, 768, 12, True),
+     (2, 201, 768, 12, False), (2, 201, 768, 12, True)],
 )
 def test_attn_kernel_matches_plain(cuda_device, b, t, d, h, masked):
     args = _inputs(b, t, d, 3 * d, d, seed=t, dev=cuda_device)
@@ -73,7 +77,7 @@ def test_attn_kernel_matches_plain(cuda_device, b, t, d, h, masked):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b, t", [(3, 197), (2, 17), (4, 257)])
+@pytest.mark.parametrize("b, t", [(3, 197), (2, 17), (4, 257), (4, 1), (3, 14), (2, 201)])
 def test_mlp_kernel_matches_plain(cuda_device, b, t):
     args = _inputs(b, t, 768, 3072, 3072, seed=t, dev=cuda_device)
     before = fb.mlp_sublayer_cuda.launches
