@@ -3,15 +3,18 @@ serving path, the ViT-B16 image training step, the ViT-B16 video classifier
 (16 x 224^2 clip, 1568 tokens; served and trained, frozen-encoder and full
 fine-tune), the ViT-B16 point-cloud models (classifier served and trained,
 segmenter served, masked point ViT trained, multi-view classifier served),
-a whole ViT-L14 image classifier (served and trained), and all 12
+a whole ViT-L14 image classifier (served and trained), all 12
 modalities of ``pipeline.Data2Seq`` with the fused multimodal trio, the
 bucket ladder and the audio, hyper-spectral, tabular and time-series models
-(served) on one NVIDIA GPU through the hand-written kernels.
+(served), the serving edge (``serving.Dispatcher``, ``ServingDaemon``, byte
+payloads), the graph predictor and the demo CLI on one NVIDIA GPU through
+the hand-written kernels.
 
     python3 chip_smoke.py [--seed N] [--profile]
     python3 chip_smoke.py --bwd-times      # only the flash backward and video-step times
     python3 chip_smoke.py --kernel-times   # only #1-#4, #7 and the forwards and steps they carry
     python3 chip_smoke.py --fps-plans      # only #7 under its launch plan and variants of it
+    python3 chip_smoke.py --serving        # only the serving edge, the graph predictor, the demo
 
 Phases (any failed check raises, so the process exits non-zero):
 
@@ -92,10 +95,25 @@ Phases (any failed check raises, so the process exits non-zero):
     card, launches held; the CLIP text tower against itself in float64;
     the fused sublayers and flash kernels are held at these paths' shapes in
     phases 3 and 9;
-12. the host: the C++ host runtime (grid subsampling, kNN) against its
+12. the serving edge at ViT-B16 width, BF16: all 12 modalities behind one
+    ``serving.Dispatcher`` (the batch-1 requests of
+    scripts/bench_serving.py: uint8 pixels, a padded graph dict), one mixed
+    flush of 2 requests a modality on the bucketed and on the packed path,
+    launches held to what the flush's groups need and answers against the
+    plain versions; a ``ServingDaemon`` (max_batch 24, max_wait 0.3 s) on
+    each path: one warm-up storm, 2 timed storms of 6 requests a modality,
+    every future read, requests/s, p50 and p99; byte payloads (npy, npz, WAV, UTF-8, a
+    DIB AVI; PNG where Pillow imports) through the daemon, decoded equal to
+    their array twins and answered as the twins are;
+13. the graph predictor at ``enc.GRAPH_BASE`` (32 heads of 24, T = 194) on
+    64 collated random molecules, BF16, plain attention and Performer (no
+    kernel launched: head_dim 24), FP32 against the CPU at 1e-4, ms and
+    graphs/s; then ``demo.main`` on the card for ``--modality image
+    --synthetic`` and a WAV file;
+14. the host: the C++ host runtime (grid subsampling, kNN) against its
     numpy twins, and host-to-device copy times of an image and a cloud
     batch;
-13. print one JSON line describing the kernels, then the result line.
+15. print one JSON line describing the kernels, then the result line.
 
 It imports nothing of JAX. Without a CUDA card it raises before printing
 any result.
@@ -251,14 +269,17 @@ FUSED_KERNELS = ("attn_sublayer", "mlp_sublayer", "attn_sublayer_bwd")
 FLASH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 
 
+def _smi() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+
+
 def phase_device() -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA card: chip_smoke.py runs only on a GPU")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
-    print(smi, flush=True)  # name, power limit: as nvidia-smi gives them
+    print(_smi(), flush=True)  # name, power limit: as nvidia-smi gives them
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print("tf32: off for fp32 matmuls and cuDNN convolutions", flush=True)
@@ -2199,9 +2220,7 @@ def phase_host_copies(seed: int, dev) -> None:
     and of a float32 cloud batch of 64 x 1024 x 3, from pageable memory as
     the serving wrappers take them (``tensor.to(device)``) and from pinned
     memory: CUDA events around one copy, median of TIMING_REPS."""
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    smi = _smi()
     images = torch.randint(0, 256, (128, 224, 224, 3), dtype=torch.uint8,
                            generator=torch.Generator().manual_seed(seed))
     clouds = _clouds(seed, POINT_SERVE_BATCHES[-1], POINT_N)
@@ -2622,6 +2641,426 @@ def phase_modality_models(seed: int, dev) -> dict:
     return launches
 
 
+# --------------------------------------------------------------------------
+# The serving edge: Dispatcher, ServingDaemon, byte payloads; graphs; demo
+# --------------------------------------------------------------------------
+
+# scripts/bench_serving.py: 2 requests a modality in one mixed flush, then
+# a daemon at max_batch 24 / max_wait 0.3 s taking one warm-up storm and
+# SERVING_STORMS timed storms of SERVING_PER_MODALITY requests a modality.
+SERVING_FLUSH_PER_MODALITY, SERVING_PER_MODALITY, SERVING_STORMS = 2, 6, 2
+SERVING_MAX_BATCH, SERVING_MAX_WAIT_S = 24, 0.3
+SERVING_TIMEOUT_S = 300
+# The graph predictor of recipes.py build_graph (PCQM4Mv2 TokenGT): buckets
+# of 64 nodes and 128 edges, T = 2 + 64 + 128 = 194; GRAPH_CPU_BATCH of its
+# GRAPH_BATCH molecules also run on the CPU for the FP32 check.
+GRAPH_BATCH, GRAPH_MAX_NODES, GRAPH_MAX_EDGES, GRAPH_LAP_K = 64, 64, 128, 16
+GRAPH_CPU_BATCH, GRAPH_TOL = 8, 1e-4
+
+
+def _serving_raw(name: str, rng: np.random.Generator):
+    """One batch-1 request of ``name`` as a client sends it (host numpy):
+    the RAW table of scripts/bench_serving.py (uint8 pixels, a padded graph
+    dict), copied because that script imports JAX."""
+    if name == "graph":
+        n_nodes, n_edges = 32, 48
+        return {
+            "node_data": rng.integers(0, 16, (1, n_nodes, 9)).astype(np.int32),
+            "edge_data": rng.integers(0, 4, (1, n_edges, 3)).astype(np.int32),
+            "edge_index": rng.integers(0, n_nodes, (1, n_edges, 2)).astype(np.int32),
+            "node_num": np.asarray([n_nodes], np.int32),
+            "edge_num": np.asarray([n_edges], np.int32),
+            "lap_eigvec": rng.standard_normal((1, n_nodes, 16)).astype(np.float32),
+        }
+    pixels = lambda *s: rng.integers(0, 256, s, dtype=np.uint8)
+    return {
+        "image": lambda: pixels(1, 224, 224, 3), "x-ray": lambda: pixels(1, 224, 224, 3),
+        "infrared": lambda: pixels(1, 224, 224, 1), "video": lambda: pixels(1, 16, 224, 224, 3),
+        "audio": lambda: rng.standard_normal((1, 1024, 128)).astype(np.float32),
+        "point": lambda: (rng.standard_normal((1, 1024, 3)) * 0.5).astype(np.float32),
+        "time-series": lambda: rng.standard_normal((1, 96, 7)).astype(np.float32),
+        "imu": lambda: rng.standard_normal((1, 256, 6)).astype(np.float32),
+        "tabular": lambda: rng.integers(0, 8, (1, 14)).astype(np.int32),
+        "hyper": lambda: rng.standard_normal((1, 200, 49)).astype(np.float32),
+        "text": lambda: rng.integers(1, 49000, (1, 77)).astype(np.int32),
+    }[name]()
+
+
+def _serving_dispatcher(seed: int, fused: bool, enc_params=None, toks=None):
+    """All 12 ``Data2Seq`` facades (``_modality_config``'s configs, seeded
+    weights on the card) behind one ``Dispatcher`` over one ViT-B16 encoder,
+    BF16, as scripts/bench_serving.py builds it."""
+    from metatransformer_tpu_torch import pipeline, serving
+    from metatransformer_tpu_torch.core import encoder as enc
+
+    if toks is None:
+        toks = {}
+        for i, name in enumerate(MODALITY_SPECS):
+            facade = pipeline.Data2Seq(name, D, config=_modality_config(name))
+            toks[name] = (facade, facade.init(torch.Generator().manual_seed(seed + 1 + i)))
+    if enc_params is None:
+        enc_params = enc.init(enc.BASE, torch.Generator().manual_seed(seed))
+    cfg = serving.ServingConfig(encoder=enc.BASE, precision=enc.BF16, fused=fused)
+    return serving.Dispatcher(toks, enc_params, cfg)
+
+
+def _flush_launches(disp, fused: bool) -> dict:
+    """The launches one flush must make: per encoded group 12 of #1 and #2
+    at T <= 256 or 12 of #4 from 512 (bucketed: per (bucket, batch) group;
+    packed: per modality group at its own T), one #7 per point group."""
+    want = {}
+    if fused:
+        groups = [MODALITY_SPECS[name][1] for name, _ in disp.tok_stats]
+    else:
+        groups = [lb for lb, _ in disp.stats]
+    for t in groups:
+        for k, v in _expected_launches(t, 12).items():
+            want[k] = want.get(k, 0) + v
+    want["fps"] = sum(n for (name, _), n in disp.tok_stats.items() if name == "point")
+    return want
+
+
+def _host_ms(fn, reps: int = 5) -> float:
+    """Median host-clock time of ``fn``, which ends in a device readback."""
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def phase_serving(seed: int, dev, profile: bool = False) -> dict:
+    """The serving edge at ViT-B16 width, BF16, seeded weights: (a) one
+    mixed flush of SERVING_FLUSH_PER_MODALITY requests of each of the 12
+    modalities through ``Dispatcher.serve``, bucketed and packed, launches
+    held to what the groups need and every answer against the same flush
+    under the plain versions; (b) ``ServingDaemon`` storms on the packed
+    path (as scripts/bench_serving.py runs it) and on the bucketed path: one
+    warm-up, SERVING_STORMS timed, every future read; (c) byte payloads (npy, npz,
+    WAV, UTF-8, a DIB AVI, PNG where Pillow imports) through the daemon,
+    each decoded equal to its array twin on the host and answered as the
+    twin is. Flush times by the host clock (``serve`` returns host
+    arrays); with ``profile``, device time by kernel of each flush. Returns
+    the launches of each path."""
+    from metatransformer_tpu_torch import ops, serving
+
+    smi = _smi()
+    names = list(MODALITY_SPECS)
+    rng = np.random.default_rng(seed + 21)
+    flush = [serving.Request(name, _serving_raw(name, rng), request_id=i)
+             for i, name in enumerate(names * SERVING_FLUSH_PER_MODALITY)]
+    if profile:  # a process's first profiled window holds the profiler's start-up
+        from torch.profiler import ProfilerActivity
+
+        with torch.profiler.profile(activities=[ProfilerActivity.CUDA]):
+            torch.ones(1, device=dev).add_(1)
+            torch.cuda.synchronize()
+    bucketed = _serving_dispatcher(seed, fused=False)
+    packed = _serving_dispatcher(seed, True, bucketed.encoder_params, bucketed.tokenizers)
+    launches = {}
+    for path, disp in (("serving_bucketed", bucketed), ("serving_packed", packed)):
+        fused = disp.cfg.fused
+        disp.serve(flush)  # warm-up: allocator, cuBLAS handles
+        disp.stats.clear()
+        disp.tok_stats.clear()
+        ops.reset_launch_counts()
+        answers = disp.serve(flush)
+        torch.cuda.synchronize()
+        launches[path] = ops.launch_counts()
+        want = _flush_launches(disp, fused)
+        got = {k: v for k, v in launches[path].items() if v}
+        if got != want:
+            raise AssertionError(f"{path}: launches {got}, expected {want}")
+        with _plain_versions():
+            plain = disp.serve(flush)
+        err = top = 0.0
+        for req, a, p in zip(flush, answers, plain):
+            if a.shape != (D,) or a.dtype != np.float32 or not np.isfinite(a).all():
+                raise AssertionError(f"{path} {req.modality}: answer {a.shape} {a.dtype}")
+            err = max(err, float(np.abs(a - p).max()))
+            top = max(top, float(np.abs(p).max()))
+            np.testing.assert_allclose(a, p, atol=LOGIT_ATOL, rtol=LOGIT_RTOL,
+                                       err_msg=f"{path} {req.modality}")
+        ms = _host_ms(lambda: disp.serve(flush))
+        if profile:
+            _profile_step(lambda: disp.serve(flush), f"{path} flush of {len(flush)}")
+        print(f"{path}: one flush of {len(flush)} requests (12 modalities x "
+              f"{SERVING_FLUSH_PER_MODALITY}) in {ms:.4f} ms (median of 5, host clock, host "
+              f"arrays in and out), num_programs {disp.num_programs} "
+              f"({sorted(disp.stats)}), packed_retraces {disp.packed_retraces}, "
+              f"packed_fallbacks {disp.packed_fallbacks}, tokenizer groups "
+              f"{len(disp.tok_stats)}; max |kernel - plain| {err:.6g} (tol {LOGIT_ATOL} / "
+              f"{LOGIT_RTOL}, max |plain| {top:.4g}); launches {launches[path]}", flush=True)
+
+    # (b) the daemon storms of scripts/bench_serving.py: the packed path it
+    # runs, then the bucketed path; (c) byte payloads on the packed daemon
+    for path, disp in (("serving_daemon", packed), ("serving_daemon_bucketed", bucketed)):
+        daemon = serving.ServingDaemon(disp, max_batch=SERVING_MAX_BATCH,
+                                       max_wait_s=SERVING_MAX_WAIT_S)
+        try:
+            launches[path] = _daemon_storms(daemon, rng, names, path, smi)
+            if path == "serving_daemon":
+                _payloads_through(daemon, rng)
+        finally:
+            daemon.stop()
+    del bucketed, packed
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _daemon_storms(daemon, rng: np.random.Generator, names, path: str, smi: str) -> dict:
+    """One warm-up storm, then SERVING_STORMS timed storms of
+    SERVING_PER_MODALITY requests of each modality submitted round-robin
+    (the adversarial mix for the buckets: every flush holds every native
+    length); every future read. Prints requests/s, p50, p99 and the
+    dispatch split; returns the timed storms' launches."""
+    from metatransformer_tpu_torch import ops, serving
+
+    disp = daemon.dispatcher
+
+    def storm():
+        reqs = [serving.Request(m, _serving_raw(m, rng))
+                for _ in range(SERVING_PER_MODALITY) for m in names]
+        t0 = time.perf_counter()
+        futs = [daemon.submit(r) for r in reqs]
+        outs = [f.result(timeout=SERVING_TIMEOUT_S) for f in futs]
+        dt = time.perf_counter() - t0
+        for o in outs:
+            if o.shape != (D,) or not np.isfinite(o).all():
+                raise AssertionError(f"{path} answer {o.shape}, finite {np.isfinite(o).all()}")
+        return len(outs), dt
+
+    n_warm, warm_s = storm()
+    daemon.reset_stats()
+    disp.dispatch_s = 0.0
+    retraces = disp.packed_retraces
+    ops.reset_launch_counts()
+    n = dt = 0
+    for _ in range(SERVING_STORMS):
+        sn, sdt = storm()
+        n, dt = n + sn, dt + sdt
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    lat = daemon.latency_percentiles()
+    route = "packed" if disp.cfg.fused else "bucketed"
+    split = (f"dispatch_s {disp.dispatch_s:.4f} s of {dt:.4f} s, packed compositions {retraces} "
+             f"-> {disp.packed_retraces}, fallbacks {disp.packed_fallbacks}" if disp.cfg.fused
+             else f"(length, batch) groups {sorted(disp.stats)}")
+    print(f"{path} (max_batch {SERVING_MAX_BATCH}, max_wait {SERVING_MAX_WAIT_S} s, {route}, "
+          f"BF16): warm-up {n_warm} requests in {warm_s:.3f} s; {SERVING_STORMS} storms of "
+          f"{n // SERVING_STORMS} requests (12 modalities x {SERVING_PER_MODALITY}, "
+          f"round-robin): {n / dt:.2f} requests/s, p50 {lat['p50_ms']:.2f} ms, p99 "
+          f"{lat['p99_ms']:.2f} ms over {lat['n']} requests, {split}; launches {launches} "
+          f"({smi})", flush=True)
+    if lat["n"] != n:
+        raise AssertionError(f"{path} recorded {lat['n']} latencies of {n} requests")
+    return launches
+
+
+def _payloads_through(daemon, rng: np.random.Generator) -> None:
+    """Byte payloads submitted beside their array twins; every future read,
+    each answer within the serving tolerance of its twin's."""
+    from metatransformer_tpu_torch import serving
+
+    formats = _serving_payloads(rng)
+    futs = [(fmt, daemon.submit(serving.Request(m, payload)),
+             daemon.submit(serving.Request(m, twin)))
+            for fmt, m, payload, twin in formats]
+    err = 0.0
+    for fmt, fb, ft in futs:
+        got, want = fb.result(timeout=SERVING_TIMEOUT_S), ft.result(timeout=SERVING_TIMEOUT_S)
+        if got.shape != (D,) or not np.isfinite(got).all():
+            raise AssertionError(f"{fmt} payload: answer {got.shape}")
+        err = max(err, float(np.abs(got - want).max()))
+        np.testing.assert_allclose(got, want, atol=LOGIT_ATOL, rtol=LOGIT_RTOL,
+                                   err_msg=f"{fmt} payload")
+    print(f"serving byte payloads through the daemon: {', '.join(f for f, *_ in formats)}; "
+          f"each decoded equal to its array twin on the host, answers within {err:.6g} of the "
+          f"twin's (tol {LOGIT_ATOL} / {LOGIT_RTOL})", flush=True)
+
+
+def _serving_payloads(rng: np.random.Generator) -> list:
+    """[(format, modality, payload bytes, array twin)]: each payload decoded
+    on the host and held equal to its twin, made without the codec (the
+    twin of a WAV is fbank_np of its samples, padded to 1024 frames; of the
+    AVI the sampled frames' centre crop; of a PNG the centre crop of a
+    256^2 image, which the codec's resize leaves as it is)."""
+    import io
+    import tempfile
+    import wave
+
+    from metatransformer_tpu_torch.data import codecs, video_dataset, video_decode
+    from metatransformer_tpu_torch.ops import fbank
+    from metatransformer_tpu_torch.tokenizers import bpe
+
+    out = []
+    points = (rng.standard_normal((1024, 3)) * 0.5).astype(np.float32)
+    series = rng.standard_normal((96, 7)).astype(np.float32)
+    out.append(("npy (point)", "point", codecs.encode_npy(points), points[None]))
+    out.append(("npy (time-series)", "time-series", codecs.encode_npy(series), series[None]))
+    graph = {k: v[0] for k, v in _serving_raw("graph", rng).items()}
+    out.append(("npz (graph)", "graph", codecs.encode_npz(graph),
+                {k: v[None] for k, v in graph.items()}))
+    pcm = (np.clip(rng.standard_normal(FUSE_SAMPLES) * 0.1, -1, 1) * 32767).astype(np.int16)
+    bio = io.BytesIO()
+    with wave.open(bio, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(16000)
+        w.writeframes(pcm.tobytes())
+    spec = fbank.fbank_np(pcm.astype(np.float32) / 32768.0)[:1024]
+    spec = np.pad(spec, ((0, 1024 - len(spec)), (0, 0)))[None].astype(np.float32)
+    out.append(("WAV (audio)", "audio", bio.getvalue(), spec))
+    text = "a photo of a cat on a mat"
+    out.append(("UTF-8 (text)", "text", text.encode(), bpe.CLIPBPE().tokenize(text)))
+    frames = rng.integers(0, 256, (20, 240, 320, 3), dtype=np.uint8)
+    with tempfile.TemporaryDirectory() as d:
+        path = f"{d}/clip.avi"
+        video_decode.write_dib_avi(frames, path)
+        with open(path, "rb") as f:
+            avi = f.read()
+    idx = video_dataset.sample_frame_indices(20, 16, test_clip=0, test_num_clips=1)
+    out.append(("DIB AVI (video)", "video", avi,
+                video_dataset.three_crop(frames[idx], 224)[1][None]))
+    try:
+        from PIL import Image
+    except ImportError:
+        Image = None
+    if Image is not None:
+        still = rng.integers(0, 256, (256, 256, 3), dtype=np.uint8)
+        bio = io.BytesIO()
+        Image.fromarray(still).save(bio, "PNG")
+        out.append(("PNG (image)", "image", bio.getvalue(), still[16:240, 16:240][None]))
+    for fmt, modality, payload, twin in out:
+        got = codecs.decode_payload(modality, payload)
+        pairs = [(got[k], twin[k]) for k in twin] if isinstance(twin, dict) else [(got, twin)]
+        for g, t in pairs:
+            if g.dtype != t.dtype or g.shape != t.shape or not np.array_equal(g, t):
+                raise AssertionError(f"{fmt}: decoded {g.dtype} {g.shape} differs from its twin "
+                                     f"{t.dtype} {t.shape}")
+    if Image is None:
+        print("serving byte payloads: Pillow does not import here, so no PNG / JPEG payload ran",
+              flush=True)
+    return out
+
+
+def _molecules(rng: np.random.Generator, n: int) -> list:
+    """Random molecule-like graphs in the PCQM4Mv2 format (9 atom and 3 bond
+    feature columns at the dataset's offsets of 512 a column): 9 to 30
+    atoms, a chain plus a few ring closures, each bond listed both ways."""
+    graphs = []
+    for _ in range(n):
+        atoms = int(rng.integers(9, 31))
+        bonds = [(i, i + 1) for i in range(atoms - 1)]
+        for _ in range(int(rng.integers(0, 4))):
+            u, v = sorted(int(x) for x in rng.choice(atoms, 2, replace=False))
+            if v > u + 2:
+                bonds.append((u, v))
+        edges = np.array(bonds + [(v, u) for u, v in bonds], np.int32)
+        graphs.append({
+            "node_data": (rng.integers(1, 512, (atoms, 9)) + 512 * np.arange(9)).astype(np.int32),
+            "edge_index": edges,
+            "edge_data": (rng.integers(1, 512, (len(edges), 3))
+                          + 512 * np.arange(3)).astype(np.int32),
+        })
+    return graphs
+
+
+def phase_graph(seed: int, dev, profile: bool = False) -> dict:
+    """The graph predictor of recipes.py build_graph at ``enc.GRAPH_BASE``
+    (12 x 768, 32 heads of 24; num_atoms 4608, num_edge_types 1536, lap k
+    16) on GRAPH_BATCH random molecules through ``graph_collate.collate``
+    (T = 194), BF16 as the recipe runs it, with the plain attention and with
+    ``attn_impl="performer"``: no kernel of the port admits head_dim 24, so
+    both launch none. The card's FP32 predictions are held against the
+    CPU's on GRAPH_CPU_BATCH molecules at GRAPH_TOL (TF32 off). Returns the
+    launches of each BF16 run."""
+    from metatransformer_tpu_torch import ops
+    from metatransformer_tpu_torch.core import encoder as enc
+    from metatransformer_tpu_torch.data import graph_collate
+    from metatransformer_tpu_torch.models import graph_predictor as gp
+    from metatransformer_tpu_torch.tokenizers import graph as graph_tok
+
+    smi = _smi()
+    tok = graph_tok.GraphTokenizerConfig(num_atoms=4608, num_edge_types=1536, dim=D,
+                                         lap_node_id_k=GRAPH_LAP_K)
+    cpu_params = gp.init(gp.GraphPredictorConfig(tokenizer=tok),
+                         torch.Generator().manual_seed(seed + 31), device="cpu")
+    params = {k: ({kk: vv.to(dev) for kk, vv in v.items()} if isinstance(v, dict) else v.to(dev))
+              for k, v in cpu_params.items()}
+    batch = graph_collate.collate(_molecules(np.random.default_rng(seed + 32), GRAPH_BATCH),
+                                  GRAPH_MAX_NODES, GRAPH_MAX_EDGES, GRAPH_LAP_K)
+    on_card = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    small = {k: torch.from_numpy(v[:GRAPH_CPU_BATCH]) for k, v in batch.items()}
+    t = 2 + GRAPH_MAX_NODES + GRAPH_MAX_EDGES
+    launches = {}
+    for impl in ("xla", "performer"):
+        cfg = gp.GraphPredictorConfig(tokenizer=tok,
+                                      encoder=dataclasses.replace(enc.GRAPH_BASE, attn_impl=impl))
+        with torch.no_grad():
+            ops.reset_launch_counts()
+            pred = gp.forward(params, on_card, cfg, precision=enc.BF16)
+            torch.cuda.synchronize()
+            path = "graph_bf16" if impl == "xla" else "graph_performer_bf16"
+            launches[path] = ops.launch_counts()
+            if any(launches[path].values()):
+                raise AssertionError(f"{path}: launches {launches[path]}, expected none")
+            if pred.shape != (GRAPH_BATCH, 1) or not torch.isfinite(pred).all():
+                raise AssertionError(f"graph {impl}: predictions {tuple(pred.shape)}")
+            ms = _median_ms(lambda: gp.forward(params, on_card, cfg, precision=enc.BF16),
+                            MODALITY_TIMING_REPS)
+            if profile:
+                _profile_step(lambda: gp.forward(params, on_card, cfg, precision=enc.BF16),
+                              f"graph predictor ({impl}) BF16 b={GRAPH_BATCH}")
+            fp32_card = gp.forward(params, on_card, cfg)[:GRAPH_CPU_BATCH].cpu()
+            fp32_cpu = gp.forward(cpu_params, small, cfg)
+        err = (fp32_card - fp32_cpu).abs().max().item()
+        bf16_gap = (pred[:GRAPH_CPU_BATCH].cpu() - fp32_cpu).abs().max().item()
+        print(f"graph predictor ({impl}) b={GRAPH_BATCH} T={t} BF16: {ms:.4f} ms, "
+              f"{GRAPH_BATCH * 1000.0 / ms:.2f} graphs/s (median of {MODALITY_TIMING_REPS}, "
+              f"collated batch on the card -> predictions); FP32 card vs CPU on "
+              f"{GRAPH_CPU_BATCH} molecules: max |diff| {err:.4g} (tol {GRAPH_TOL}); BF16 vs "
+              f"FP32 {bf16_gap:.4g}; launches {launches[path]} ({smi})", flush=True)
+        torch.testing.assert_close(fp32_card, fp32_cpu, atol=GRAPH_TOL, rtol=GRAPH_TOL)
+    del params, cpu_params, on_card
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_demo(seed: int) -> None:
+    """``demo.main`` as a user runs it, with no device named (the card):
+    ``--modality image --synthetic`` and a WAV file (audio, through the
+    codecs); the printed lines checked."""
+    import contextlib
+    import io
+    import tempfile
+    import wave
+
+    from metatransformer_tpu_torch import demo
+
+    pcm = (np.sin(np.arange(48_000) * 0.07) * 2**14).astype(np.int16)
+    with tempfile.TemporaryDirectory() as d:
+        path = f"{d}/tone.wav"
+        with wave.open(path, "wb") as w:
+            w.setnchannels(1)
+            w.setsampwidth(2)
+            w.setframerate(16000)
+            w.writeframes(pcm.tobytes())
+        for args, tokens in ((["--modality", "image", "--synthetic"], "tokens=(1, 196, 768)"),
+                             (["--modality", "audio", "--input", path], "tokens=(1, 1212, 768)")):
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                rc = demo.main(args + ["--seed", str(seed)])
+            text = out.getvalue()
+            for want in (f"modality={args[1]}", "device=cuda", tokens, "pooled[0:8]"):
+                if rc != 0 or want not in text:
+                    raise AssertionError(f"demo {args}: rc {rc}, {want!r} not in {text!r}")
+            print(f"demo {' '.join(args[:3])}: " + " | ".join(text.strip().splitlines()),
+                  flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2629,8 +3068,9 @@ def main() -> None:
                     help="also print device time by kernel of one full-track image step, "
                          "one video forward at b=8, one full-track video step, the point "
                          "and segmenter forwards at their largest batch, one full-track "
-                         "point step, the text and audio modalities and the fused trio at "
-                         "b=8 and b=1")
+                         "point step, the text and audio modalities, the fused trio at "
+                         "b=8 and b=1, one bucketed and one packed serving flush and the "
+                         "graph predictor")
     ap.add_argument("--bwd-times", action="store_true",
                     help="only build and time the flash backward kernels and one step of "
                          "each video track, to compare checkouts in turns; prints no result")
@@ -2642,6 +3082,9 @@ def main() -> None:
     ap.add_argument("--fps-plans", action="store_true",
                     help="only build and time kernel #7 at every FPS case under its launch "
                          "plan and plans with one knob changed; prints no result")
+    ap.add_argument("--serving", action="store_true",
+                    help="only build and drive the serving edge (Dispatcher, ServingDaemon, "
+                         "byte payloads), the graph predictor and the demo; prints no result")
     args = ap.parse_args()
 
     phase_device()
@@ -2655,6 +3098,11 @@ def main() -> None:
         return
     if args.fps_plans:
         phase_fps_plans(args.seed, dev)
+        return
+    if args.serving:
+        phase_serving(args.seed, dev, args.profile)
+        phase_graph(args.seed, dev, args.profile)
+        phase_demo(args.seed)
         return
     errs = phase_kernels(args.seed, dev)
     phase_autograd(args.seed, dev)
@@ -2696,6 +3144,9 @@ def main() -> None:
     fuse_launches = phase_fuse(args.seed, dev, args.profile)
     bucket_launches = phase_buckets(args.seed, dev)
     model_launches = phase_modality_models(args.seed, dev)
+    serving_launches = phase_serving(args.seed, dev, args.profile)
+    graph_launches = phase_graph(args.seed, dev, args.profile)
+    phase_demo(args.seed)
     phase_native_host(args.seed)
     phase_host_copies(args.seed, dev)
 
@@ -2719,6 +3170,8 @@ def main() -> None:
         **fuse_launches,
         "buckets": bucket_launches,
         **model_launches,
+        **serving_launches,
+        **graph_launches,
     }
     on_path = {  # the kernels each path must have gone through
         "serve": ("attn_sublayer", "mlp_sublayer"),
@@ -2743,6 +3196,12 @@ def main() -> None:
         "audio_serve": ("flash_fwd",),
         **{path: ("attn_sublayer", "mlp_sublayer")
            for path in ("hyper_vit", "hyper_caf", "tabular_serve", "ts_forecast")},
+        **{path: ("attn_sublayer", "mlp_sublayer", "flash_fwd", "fps")
+           for path in ("serving_bucketed", "serving_packed", "serving_daemon",
+                        "serving_daemon_bucketed")},
+        # head_dim 24: no kernel admits it, in either package (phase_graph
+        # asserts that these ran none)
+        "graph_bf16": (), "graph_performer_bf16": (),
     }
     for name, (_, t, bucket) in MODALITY_SPECS.items():
         depth, fps = 12, name == "point"

@@ -30,6 +30,7 @@ import torch.utils.checkpoint
 from metatransformer_tpu_torch.core import device as _device
 from metatransformer_tpu_torch.ops import flash_attention as _fa
 from metatransformer_tpu_torch.ops import fused_block as _fb
+from metatransformer_tpu_torch.ops import performer as _perf
 
 Params = Dict[str, torch.Tensor]
 
@@ -43,7 +44,6 @@ _MATMUL_LEAVES = (
 # ROADMAP.md queues them.
 _NOT_PORTED = {
     "ring": "ROADMAP.md queue 1, item 8 (parallel/ring_attention.py)",
-    "performer": "ROADMAP.md queue 1, item 3 (ops/performer.py)",
 }
 
 
@@ -82,16 +82,16 @@ class EncoderConfig:
     num_heads: int = 12
     mlp_ratio: float = 4.0
     ln_eps: float = 1e-5  # torch nn.LayerNorm default
-    attn_impl: str = "auto"  # "xla" | "fused" | "flash" | "auto" (others not ported)
+    attn_impl: str = "auto"  # "xla" | "fused" | "flash" | "performer" | "auto" ("ring" not ported)
     # Gradient checkpointing over the depth loop. False: off. True:
     # recompute each block in the backward pass (activation memory O(1)
     # blocks). "save": keep the block's intermediates for the backward; the
     # fused sublayers recompute theirs, so "save" resolves "fused" to "xla".
     remat: Any = False
-    # The reference's options of the paths not ported yet, kept so that a
-    # config carried over with them constructs: FAVOR+ features (0 -> 2 *
-    # head_dim) and their seed for attn_impl="performer", the mesh axis the
-    # tokens are sharded over for attn_impl="ring". Both paths raise.
+    # FAVOR+ features (0 -> 2 * head_dim) and their seed for
+    # attn_impl="performer"; the mesh axis the tokens are sharded over for
+    # attn_impl="ring", kept so that a config carried over with it
+    # constructs (that path is not ported and raises).
     performer_features: int = 0
     performer_seed: int = 0
     ring_axis: str = "seq"
@@ -142,7 +142,10 @@ def attention(
     "xla": q/k/v are produced head-major ``[B, H, T, d]`` against the
     reshaped fused-qkv weight and the [T, T] logits are materialised. Masked
     keys are filled with -1e4 under bf16 and with ``finfo(float32).min``
-    under fp32, as the reference does. "flash": one fused-qkv matmul gives
+    under fp32, as the reference does. "performer": the same q/k/v go to
+    :func:`..ops.performer.favor_attention` (FAVOR+, linear in T) with
+    ``cfg.performer_features`` random features drawn from
+    ``cfg.performer_seed``. "flash": one fused-qkv matmul gives
     ``[B, T, 3, H, d]``, whose three strided views go to
     :func:`..ops.flash_attention.flash_attention` uncopied.
     """
@@ -169,6 +172,13 @@ def attention(
     q = torch.einsum("btd,dhk->bhtk", xc, w[:, 0]) + b3[0][:, None]
     k = torch.einsum("btd,dhk->bhtk", xc, w[:, 1]) + b3[1][:, None]
     v = torch.einsum("btd,dhk->bhtk", xc, w[:, 2]) + b3[2][:, None]
+    if impl == "performer":
+        nf = cfg.performer_features or 2 * hd
+        feats = torch.from_numpy(_perf.orthogonal_random_features(cfg.performer_seed, nf, hd))
+        o = _perf.favor_attention(q, k, v, feats, mask=mask)
+        proj = p["proj_w"].to(cd).reshape(h, hd, d)
+        out = torch.einsum("bhtk,hkd->btd", o, proj) + p["proj_b"].to(cd)
+        return out.to(x.dtype)
     if precision.is_bf16:
         logits = torch.einsum("bhtk,bhsk->bhts", q * scale, k)
         if mask is not None:

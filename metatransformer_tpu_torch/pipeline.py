@@ -94,9 +94,10 @@ class Data2Seq:
             return tokens
         if mod == "graph":
             if not isinstance(raw, dict):
-                raise NotImplementedError(
-                    "Data2Seq('graph') takes a padded batch dict; collating raw graphs "
-                    "(data/graph_collate.py) is not ported yet: ROADMAP.md queue 1, item 3")
+                raise TypeError(
+                    "Data2Seq('graph') takes a padded batch dict, as the reference does; "
+                    "pad raw graphs into one first with "
+                    "metatransformer_tpu_torch.data.graph_collate.collate")
             tokens, _ = self._mod.apply(params, raw, self.config, **kw)
             return tokens
         if mod == "hyper":

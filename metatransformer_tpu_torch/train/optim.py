@@ -40,7 +40,7 @@ import torch
 
 # Optimizers of the reference's zoo that are not ported yet.
 _NOT_PORTED = {
-    name: "ROADMAP.md queue 1, item 5 (the four extra optimizers)"
+    name: "ROADMAP.md queue 1, item 4 (the four extra optimizers)"
     for name in ("lamb", "lars", "adabelief", "radam")
 }
 _PORTED = ("adamw", "adam", "sgd")

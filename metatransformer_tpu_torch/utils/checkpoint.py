@@ -9,7 +9,7 @@ other. Tensors are written as numpy arrays (bf16 leaves widen exactly to
 fp32); :func:`load` returns tensors on ``device`` (None: the card).
 
 The reference's orbax pair (``save_orbax`` / ``load_orbax``) is not ported
-yet: ROADMAP.md queue 1, item 9.
+yet: ROADMAP.md queue 1, item 7.
 """
 
 from __future__ import annotations

@@ -129,7 +129,7 @@ def test_hyper_takes_a_cls_token_and_graph_needs_a_batch_dict():
     plain = facade(params, torch.tensor(raw))
     torch.testing.assert_close(with_cls[:, 0] - plain[:, 0], cls[:, 0].expand(2, DIM))
     torch.testing.assert_close(with_cls[:, 1:], plain[:, 1:], rtol=0, atol=0)
-    with pytest.raises(NotImplementedError, match="graph_collate"):
+    with pytest.raises(TypeError, match="graph_collate.collate"):
         pipeline.Data2Seq("graph", DIM)(None, [{"node_data": np.ones((2, 1))}])
     with pytest.raises(ValueError, match="unknown modality"):
         pipeline.Data2Seq("smell")
