@@ -7,14 +7,16 @@ a whole ViT-L14 image classifier (served and trained), all 12
 modalities of ``pipeline.Data2Seq`` with the fused multimodal trio, the
 bucket ladder and the audio, hyper-spectral, tabular and time-series models
 (served), the serving edge (``serving.Dispatcher``, ``ServingDaemon``, byte
-payloads), the graph predictor and the demo CLI on one NVIDIA GPU through
-the hand-written kernels.
+payloads), the graph predictor, the demo CLI and every ported training
+recipe through ``train_cli`` on one NVIDIA GPU through the hand-written
+kernels.
 
     python3 chip_smoke.py [--seed N] [--profile]
     python3 chip_smoke.py --bwd-times      # only the flash backward and video-step times
     python3 chip_smoke.py --kernel-times   # only #1-#4, #7 and the forwards and steps they carry
     python3 chip_smoke.py --fps-plans      # only #7 under its launch plan and variants of it
     python3 chip_smoke.py --serving        # only the serving edge, the graph predictor, the demo
+    python3 chip_smoke.py --recipes        # only every ported recipe YAML through train_cli
 
 Phases (any failed check raises, so the process exits non-zero):
 
@@ -110,6 +112,22 @@ Phases (any failed check raises, so the process exits non-zero):
     kernel launched: head_dim 24), FP32 against the CPU at 1e-4, ms and
     graphs/s; then ``demo.main`` on the card for ``--modality image
     --synthetic`` and a WAV file;
+13a. the training entry point: ``train_cli.main`` as a user runs it (no
+    ``--device``, no ``--smoke``: the card, full width) on each of the 25
+    ported recipe YAMLs of ``metatransformer_tpu/configs/``, 1 epoch of 2
+    steps at ``train.batch_size=min(yaml, 8)`` (modelnet40 at its own 32,
+    ViT-B16); each recipe's launches counted under ``recipes_<stem>`` and
+    held to the kernels its T resolves to, a finite final loss, its step
+    timed as ``train_cli.setup`` builds it (median of 20, batch on the
+    card); ``--eval`` and ``--eval-all`` on modelnet40's work dir,
+    ``--data`` on a JPEG tree the phase writes for imagenet; the shape of
+    every kernel call of these runs recorded, and each kernel held against
+    its plain version at each of those shapes (T = 9 ... 2876, ViT-L14's
+    widths, the fp32 route, FPS over 1024 ... 8192 points) at the bounds of
+    phases 3, 9 and 10; modelnet40 and s3dis (4096 points, T = 1025, the
+    segmenter's first training on the card) held against two steps on the
+    plain versions at the point bounds; the bare point-classifier step
+    timed beside the flagship's;
 14. the host: the C++ host runtime (grid subsampling, kNN) against its
     numpy twins, and host-to-device copy times of an image and a cloud
     batch;
@@ -1019,12 +1037,14 @@ def phase_times(model, seed: int, dev) -> dict:
     return times
 
 
-def _time_step(label, trainer, batch, unit, generator=None, profile_as=None):
+def _time_step(label, trainer, batch, unit, generator=None, profile_as=None, size=None,
+               top: int = 28) -> float:
     """Time one optimizer step of ``trainer`` on ``batch`` (moved to the card
-    once), with its peak memory; ``profile_as`` also prints its device time
-    by kernel under that name."""
+    once), with its peak memory, and return the ms; ``profile_as`` also
+    prints its device time by kernel under that name (the ``top`` kernels).
+    ``size``: the batch's samples, where its input is not one tensor."""
     on_card = trainer._to_device(batch)
-    size = len(on_card["input"])
+    size = size or len(on_card["input"])
     step = lambda: trainer._step(trainer.trainable, trainer.frozen, on_card, generator)
     torch.cuda.reset_peak_memory_stats()
     ms = _median_ms(step)
@@ -1033,7 +1053,8 @@ def _time_step(label, trainer, batch, unit, generator=None, profile_as=None):
           f"{peak:.3f} GiB (median of {TIMING_REPS} optimizer steps, batch on the card)",
           flush=True)
     if profile_as:
-        _profile_step(step, profile_as)
+        _profile_step(step, profile_as, top=top)
+    return ms
 
 
 def phase_train_times(seed: int, dev, profile: bool):
@@ -1046,8 +1067,9 @@ def phase_train_times(seed: int, dev, profile: bool):
         torch.cuda.empty_cache()
 
 
-def _profile_step(step, what: str = "full-track step", steps: int = 3):
-    """Device time by kernel over a few runs of ``step`` (torch.profiler)."""
+def _profile_step(step, what: str = "full-track step", steps: int = 3, top: int = 28):
+    """Device time by kernel over a few runs of ``step`` (torch.profiler),
+    the ``top`` kernels by time."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1063,7 +1085,7 @@ def _profile_step(step, what: str = "full-track step", steps: int = 3):
     print(f"profile, {what}: wall {wall_us:.1f} us/step under the profiler, "
           f"device busy {busy:.1f} us/step, idle share {100 * (1 - busy / wall_us):.2f}%",
           flush=True)
-    for key, us, count in sorted(rows, key=lambda r: -r[1])[:28]:
+    for key, us, count in sorted(rows, key=lambda r: -r[1])[:top]:
         print(f"  {us:10.1f} us  {100 * us / busy:6.2f}%  x{count:6.1f}  {key[:110]}",
               flush=True)
 
@@ -1118,17 +1140,17 @@ def _flash_inputs(b, h, t, d, dtype, ragged, seed, dev):
     return (*qkv.unbind(2), bias, do)
 
 
-def phase_flash_kernels(seed: int, dev) -> dict:
-    """Kernels #4-#6 vs their plain versions in fp32 from the same inputs;
-    lse held too; both backward kernels bit-equal on a second launch. A
-    sample with no kept key is held to be finite only: the reference pads T
-    and spreads its uniform p over the padded keys too. Returns the worst
-    absolute error of each kernel."""
+def phase_flash_kernels(seed: int, dev, cases=FLASH_CASES) -> dict:
+    """Kernels #4-#6 vs their plain versions in fp32 from the same inputs,
+    at each of ``cases``; lse held too; both backward kernels bit-equal on a
+    second launch. A sample with no kept key is held to be finite only: the
+    reference pads T and spreads its uniform p over the padded keys too.
+    Returns the worst absolute error of each kernel."""
     from metatransformer_tpu_torch.ops import flash_attention as fa
 
     worst = {k: 0.0 for k in FLASH_KERNELS}
     f = lambda x: x.float()
-    for b, h, t, d, dtype, ragged in FLASH_CASES:
+    for b, h, t, d, dtype, ragged in cases:
         q, k, v, bias, do = _flash_inputs(b, h, t, d, dtype, ragged, seed + t + d, dev)
         scale = float(d) ** -0.5
         with torch.no_grad():
@@ -1707,6 +1729,30 @@ def _clouds(seed: int, b: int, n: int) -> torch.Tensor:
         np.random.default_rng(seed).standard_normal((b, n, 3), np.float32) * 0.5)
 
 
+def _check_fps(tag: str, pts, g: int) -> int:
+    """Kernel #7 on ``pts`` vs its plain version, index for index, with a
+    second launch bit-equal; the number of differing indices (0, or it
+    raises)."""
+    from metatransformer_tpu_torch.ops import point_ops as po
+
+    with torch.no_grad():
+        got = po.fps_cuda(pts, g)
+        again = po.fps_cuda(pts, g)
+        torch.cuda.synchronize()
+        want = po.furthest_point_sample_plain(pts, g)
+    if got.dtype != torch.int64 or got.shape != (pts.shape[0], g):
+        raise AssertionError(f"fps {tag}: output {got.dtype} {tuple(got.shape)}")
+    if not torch.equal(got, again):
+        raise AssertionError(f"fps {tag}: a second launch does not repeat")
+    wrong = int((got != want).sum())
+    print(f"fps {tag} ({_fps_plan_text(pts.shape[1])}): {wrong} of {got.numel()} indices differ from the "
+          f"plain version, bit-equal on a second launch, {got[0].unique().numel()} "
+          f"distinct indices in cloud 0", flush=True)
+    if wrong:
+        raise AssertionError(f"fps {tag}: kernel disagrees with the plain version")
+    return wrong
+
+
 def phase_fps_kernel(seed: int, dev) -> float:
     """Kernel #7 vs its plain version, index for index (torch.equal), at
     the shapes of the point paths and past the shared-memory route; on a
@@ -1716,35 +1762,17 @@ def phase_fps_kernel(seed: int, dev) -> float:
     counted over every case."""
     from metatransformer_tpu_torch.ops import point_ops as po
 
-    def check(tag, pts, g):
-        with torch.no_grad():
-            got = po.fps_cuda(pts, g)
-            again = po.fps_cuda(pts, g)
-            torch.cuda.synchronize()
-            want = po.furthest_point_sample_plain(pts, g)
-        if got.dtype != torch.int64 or got.shape != (pts.shape[0], g):
-            raise AssertionError(f"fps {tag}: output {got.dtype} {tuple(got.shape)}")
-        if not torch.equal(got, again):
-            raise AssertionError(f"fps {tag}: a second launch does not repeat")
-        wrong = int((got != want).sum())
-        print(f"fps {tag} ({_fps_plan_text(pts.shape[1])}): {wrong} of {got.numel()} indices differ from the "
-              f"plain version, bit-equal on a second launch, {got[0].unique().numel()} "
-              f"distinct indices in cloud 0", flush=True)
-        if wrong:
-            raise AssertionError(f"fps {tag}: kernel disagrees with the plain version")
-        return wrong
-
     wrong = 0
     for b, n, g in FPS_CASES:
-        wrong += check(f"B={b} N={n} G={g}", _clouds(seed + n + g, b, n).to(dev), g)
+        wrong += _check_fps(f"B={b} N={n} G={g}", _clouds(seed + n + g, b, n).to(dev), g)
     base = _clouds(seed + 1, 4, 256).to(dev)
-    wrong += check("B=4 N=1024 G=300, 256 distinct points each four times",
-                   torch.cat([base] * 4, 1), 300)
+    wrong += _check_fps("B=4 N=1024 G=300, 256 distinct points each four times",
+                       torch.cat([base] * 4, 1), 300)
     # ties across the blocks of a cluster: every point has a copy in each block
-    wrong += check("B=2 N=16384 G=80, 64 distinct points each 256 times",
-                   _clouds(seed + 1, 2, 64).to(dev).repeat(1, 256, 1), 80)
-    wrong += check("B=2 N=16384 G=20, one point 16384 times (every distance +0)",
-                   _clouds(seed + 1, 2, 1).to(dev).expand(2, 16384, 3), 20)
+    wrong += _check_fps("B=2 N=16384 G=80, 64 distinct points each 256 times",
+                       _clouds(seed + 1, 2, 64).to(dev).repeat(1, 256, 1), 80)
+    wrong += _check_fps("B=2 N=16384 G=20, one point 16384 times (every distance +0)",
+                       _clouds(seed + 1, 2, 1).to(dev).expand(2, 16384, 3), 20)
     for n in (1024, 16384, 65537):  # masked_fps, ragged: sample i keeps its first n (i+1) / (b+1) points
         pts = _clouds(seed + 2, 8, n).to(dev)
         mask = torch.arange(n, device=dev)[None, :] < (
@@ -3061,6 +3089,367 @@ def phase_demo(seed: int) -> None:
                   flush=True)
 
 
+# --------------------------------------------------------------------------
+# The training entry point: every ported recipe YAML through train_cli
+# --------------------------------------------------------------------------
+
+RECIPE_FLAGSHIP = "modelnet40_metatransformer"  # runs at its own batch, 32
+RECIPE_BATCH, RECIPE_STEPS = 8, 2  # the others: min(yaml, 8), 1 epoch of 2 steps
+FUSED_PATH, FLASH_PATH = FUSED_KERNELS, FLASH_KERNELS
+# The kernels each recipe's training launches, by where its encoder's T
+# falls (``core/encoder.py`` ``_resolve_impl``): the fused sublayers and
+# their backward at T <= 512 under BF16, flash at T >= 512, FPS on every
+# point path; under FP32 (the two MAE losses) no fused kernel, and only
+# flash past 512 tokens.
+RECIPE_KERNELS = {
+    "adult_tabtransformer": FUSED_PATH,  # T = 9
+    "bankm_tabtransformer": FUSED_PATH,  # T = 10
+    "etth1_metatransformer": FUSED_PATH,  # T = 96
+    "ettm1_imputation_metatransformer": FUSED_PATH,  # T = 96
+    "imagenet_large_metatransformer": FUSED_PATH,  # ViT-L14, T = 257
+    "imagenet_metatransformer": FUSED_PATH,  # T = 197
+    "indianpines_caf_metatransformer": FUSED_PATH,  # T = 201
+    "indianpines_hyper_metatransformer": FUSED_PATH,  # T = 201
+    "kinetics400_metatransformer": FLASH_PATH,  # T = 1568, accum_steps 2
+    "kinetics400_videomae_pretrain": FLASH_PATH,  # fp32: decoder T = 1568
+    "m4_metatransformer": FUSED_PATH,  # T = 36
+    "modelnet40_metatransformer": ("fps", *FUSED_PATH),  # T = 257
+    "modelnet40_pointmae_pretrain": ("fps",),  # fp32: T = 17 and 65
+    "multimodal_fusion_metatransformer": FLASH_PATH,  # T = 2876
+    "pavia_hyper_metatransformer": FUSED_PATH,  # T = 104
+    # 32 heads of 24: no kernel admits head_dim 24, in either package
+    "pcqm4mv2_tokengt": (),
+    "pcqm4mv2_tokengt_performer": (),
+    "s3dis_metatransformer": ("fps", *FLASH_PATH),  # 4096 points, T = 1025
+    "scannet_metatransformer": ("fps", *FLASH_PATH),  # 8192 points, T = 2049
+    "scanobjectnn_metatransformer": ("fps", *FUSED_PATH),  # T = 257
+    "shapenetpart_metatransformer": ("fps", *FLASH_PATH),  # 2048 points, T = 513
+    "smd_anomaly_metatransformer": FUSED_PATH,  # T = 100
+    "speechcommands_metatransformer": FUSED_PATH,  # 12 x 21 patches, T = 252
+    "uea_metatransformer": FLASH_PATH,  # T = 1751
+    "xray_chest_metatransformer": FUSED_PATH,  # T = 197
+}
+# held against the plain versions (losses, first gradient and update of the
+# largest trainable leaf, at the point bounds)
+RECIPE_HELD = ("modelnet40_metatransformer", "s3dis_metatransformer")
+
+
+def _recipe_yaml(stem: str) -> str:
+    import os
+
+    from metatransformer_tpu_torch.configs import CONFIG_DIR
+
+    return os.path.join(CONFIG_DIR, f"{stem}.yaml")
+
+
+def _call_shape(name: str, arg: dict) -> tuple:
+    """The shape of one kernel call from its bound arguments: the fused
+    sublayers (b, T, D, heads, masked) or, for the MLP, (b, T, D, F); flash
+    (b, h, T, d, dtype, masked), as a ``FLASH_CASES`` entry; FPS (b, N, G)."""
+    import math
+
+    if name == "fps":
+        return (*arg["points"].shape[:2], arg["n_samples"])
+    if name in FLASH_KERNELS:
+        b, t, h, d = arg["q"].shape
+        return (b, h, t, d, arg["q"].dtype, arg["bias"] is not None)
+    x = arg["x"]
+    b, t, d = x.shape[0], math.prod(x.shape[1:-1]), x.shape[-1]
+    if name == "mlp_sublayer":
+        return (b, t, d, arg["fc1_w"].shape[1])
+    return (b, t, d, arg["num_heads"], arg["bias"] is not None)
+
+
+class _Recorded:
+    """A kernel entry that adds ``(kernel, shape)`` of each call to ``seen``
+    and then calls the entry. The entry counts its launches on the name it
+    is bound to, which is this object while it stands in: ``launches``
+    reads and writes the entry's own count."""
+
+    def __init__(self, name: str, entry, seen: set):
+        import inspect
+
+        self.name, self.entry, self.seen = name, entry, seen
+        self.signature = inspect.signature(entry)
+
+    def __call__(self, *a, **kw):
+        arguments = self.signature.bind(*a, **kw).arguments
+        self.seen.add((self.name, _call_shape(self.name, arguments)))
+        return self.entry(*a, **kw)
+
+    @property
+    def launches(self) -> int:
+        return self.entry.launches
+
+    @launches.setter
+    def launches(self, value: int) -> None:
+        self.entry.launches = value
+
+
+def _recording_shapes(seen: set):
+    """Context: a ``_Recorded`` stands in for every kernel entry."""
+    from contextlib import ExitStack
+
+    from metatransformer_tpu_torch.ops import flash_attention as fa
+    from metatransformer_tpu_torch.ops import fused_block as fb
+    from metatransformer_tpu_torch.ops import point_ops as po
+
+    stack = ExitStack()
+    for mod, name in ((fb, "attn_sublayer"), (fb, "mlp_sublayer"), (fb, "attn_sublayer_bwd"),
+                      (fa, "flash_fwd"), (fa, "flash_bwd_dq"), (fa, "flash_bwd_dkv"),
+                      (po, "fps")):
+        entry = f"{name}_cuda"
+        recorded = _Recorded(name, getattr(mod, entry), seen)
+        stack.enter_context(mock.patch.object(mod, entry, recorded))
+    return stack
+
+
+def _hold_shapes(seen: set, seed: int, dev) -> dict:
+    """Each kernel against its plain version at every shape in ``seen``
+    (``_recording_shapes``), on seeded inputs of that shape (a masked call
+    under a ragged key bias), with the bounds of phases 3, 9 and 10.
+    Returns the worst error of each kernel."""
+    worst = {}
+
+    def keep(kind, err):
+        worst[kind] = max(worst.get(kind, 0.0), err)
+
+    for name, shape in sorted(seen, key=str):
+        if name in ("attn_sublayer", "attn_sublayer_bwd"):
+            b, t, d, heads, masked = shape
+            bias = _prefix_bias(b, t, dev) if masked else None
+            if name == "attn_sublayer_bwd":
+                keep(name, phase_bwd_kernel(seed, dev, [(b, t, bias)], d, heads, "recipe "))
+                continue
+            kernel, plain = _pair(name, heads)
+            args = _sublayer_inputs(name, b, seed + b + t, dev, t, d)
+            keep(name, _check_sublayer(name, kernel, plain, args, bias, "recipe "))
+        elif name == "mlp_sublayer":
+            b, t, d, mlp = shape
+            kernel, plain = _pair(name)
+            args = _sublayer_inputs(name, b, seed + b + t, dev, t, d, mlp)
+            keep(name, _check_sublayer(name, kernel, plain, args, None, "recipe "))
+        elif name == "fps":
+            b, n, g = shape
+            keep(name, _check_fps(f"recipe B={b} N={n} G={g}",
+                                  _clouds(seed + n + g, b, n).to(dev), g))
+    flash = sorted({shape for name, shape in seen if name in FLASH_KERNELS}, key=str)
+    for kind, err in phase_flash_kernels(seed, dev, flash).items():
+        keep(kind, err)
+    torch.cuda.empty_cache()
+    return worst
+
+
+def _cli(argv) -> str:
+    """``train_cli.main(argv)`` with its standard output kept and echoed."""
+    import contextlib
+    import io
+
+    from metatransformer_tpu_torch import train_cli
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = train_cli.main(argv)
+    text = out.getvalue()
+    for line in text.strip().splitlines():
+        print(f"  | {line}", flush=True)
+    if rc != 0:
+        raise AssertionError(f"train_cli {argv}: exit code {rc}")
+    return text
+
+
+def _final_loss(text: str, what: str) -> float:
+    import re
+
+    found = re.search(r"^final: .*'loss': ([^,}]+)", text, re.M)
+    loss = float(found.group(1)) if found else float("nan")
+    if not np.isfinite(loss):
+        raise AssertionError(f"{what}: no finite final loss in {text!r}")
+    return loss
+
+
+def _recipe_batch(stem: str) -> int:
+    from metatransformer_tpu_torch.configs import load_config
+
+    yaml_batch = load_config(_recipe_yaml(stem)).train.batch_size
+    return yaml_batch if stem == RECIPE_FLAGSHIP else min(yaml_batch, RECIPE_BATCH)
+
+
+def _hold_recipe(stem: str, seed: int) -> None:
+    """Two Trainer steps of the recipe as ``train_cli`` builds it (its
+    optimizer, schedule and frozen keys) on its first synthetic batch, then
+    the same two steps from the same weights with the plain versions:
+    losses within LOSS_TOL, the first gradient and the update of the
+    largest trainable leaf at the point bounds."""
+    from metatransformer_tpu_torch import train_cli
+
+    argv = _recipe_argv(stem, seed)
+
+    def run():
+        session = train_cli.setup(argv)
+        trainer = session.trainer
+        batch = next(iter(session.train_batches()))
+        path, leaf = _largest_leaf(trainer.trainable)
+        start = leaf.detach().clone()
+        losses, grad = [], None
+        for step in range(RECIPE_STEPS):
+            losses.append(trainer.train_epoch([batch])["loss"])
+            if step == 0:
+                grad = leaf.grad.detach().clone()
+        update = leaf.detach() - start
+        return path, losses, grad, update, start
+
+    path, losses, grad, update, start = run()
+    with _plain_versions():
+        _, ref_losses, ref_grad, ref_update, _ = run()
+    diffs = [abs(a - b) for a, b in zip(losses, ref_losses)]
+    grad_rel_l2 = ((grad - ref_grad).norm() / ref_grad.norm()).item()
+    atol = 2.0 ** (int(np.floor(np.log2(start.abs().max().item()))) - 7)
+    inside = ((update - ref_update).abs()
+              <= atol + UPDATE_RTOL * ref_update.abs()).float().mean().item()
+    rel_l2 = ((update - ref_update).norm() / ref_update.norm()).item()
+    min_fraction, max_rel_l2 = POINT_UPDATE_BOUNDS
+    print(f"recipe {stem} vs plain versions, {RECIPE_STEPS} steps at batch "
+          f"{_recipe_batch(stem)}: "
+          f"losses " + " ".join(f"{v:.5f}" for v in losses) + ", |loss diff| "
+          + " ".join(f"{v:.5f}" for v in diffs) + f" (tol {LOSS_TOL}); {'/'.join(path)} "
+          f"{tuple(start.shape)}: first gradient relative L2 {grad_rel_l2:.4f} (max "
+          f"{GRAD_STEP_REL_L2}), update {inside:.4f} of elements inside (min {min_fraction}), "
+          f"relative L2 {rel_l2:.4f} (max {max_rel_l2})", flush=True)
+    if not all(np.isfinite(losses)) or max(diffs) > LOSS_TOL:
+        raise AssertionError(f"recipe {stem}: losses {losses} against plain {ref_losses}")
+    if not grad_rel_l2 <= GRAD_STEP_REL_L2:
+        raise AssertionError(f"recipe {stem}: first gradient of {path} differs from the plain run")
+    if inside < min_fraction or not rel_l2 <= max_rel_l2:
+        raise AssertionError(f"recipe {stem}: update of {path} differs from the plain run")
+
+
+def _jpeg_tree(root: str, seed: int, classes: int = 2, per_class: int = 8) -> None:
+    """A small ImageFolder tree of JPEGs of mixed sizes."""
+    import os
+
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    for c in range(classes):
+        os.makedirs(f"{root}/class{c}")
+        for i in range(per_class):
+            h, w = int(rng.integers(200, 400)), int(rng.integers(200, 400))
+            Image.fromarray(rng.integers(0, 256, (h, w, 3), np.uint8)).save(
+                f"{root}/class{c}/{i}.jpg", quality=90)
+
+
+def _recipe_argv(stem: str, seed: int) -> list:
+    return ["--cfg", _recipe_yaml(stem), "--epochs", "1",
+            "--steps-per-epoch", str(RECIPE_STEPS), f"train.batch_size={_recipe_batch(stem)}",
+            f"seed={seed}"]
+
+
+def phase_recipes(seed: int, dev, profile: bool = False) -> tuple:
+    """``train_cli.main`` on every ported recipe YAML, as a user runs it: no
+    ``--device`` (the card), no ``--smoke`` (full width), 1 epoch of 2 steps
+    at ``train.batch_size=min(yaml, 8)`` (the flagship at its own 32). Each
+    recipe's kernel launches are counted under ``recipes_<stem>``, with the
+    shape of every kernel call, and its final loss must be finite; then its
+    step is timed as ``train_cli.setup`` builds it (median of TIMING_REPS,
+    first batch on the card). ``--eval`` and ``--eval-all`` run on
+    modelnet40's work dir and ``--data`` on a JPEG tree for imagenet. Every
+    kernel is then held against its plain version at each shape these runs
+    gave it, and modelnet40 and s3dis train against the plain versions.
+    ``profile``: device time by kernel and idle share of each recipe's
+    step. Returns the launches by path and each kernel's worst error."""
+    import gc
+    import os
+    import tempfile
+
+    from metatransformer_tpu_torch import ops, train_cli
+    from metatransformer_tpu_torch.configs import CONFIG_DIR
+
+    ported = sorted(RECIPE_KERNELS)
+    shipped = sorted(n[:-5] for n in os.listdir(CONFIG_DIR) if n.endswith(".yaml"))
+    if not set(ported) <= set(shipped):
+        raise AssertionError(f"recipes not shipped: {set(ported) - set(shipped)}")
+    smi = _smi()
+    launches, times, shapes = {}, {}, set()
+    # modelnet40 trains with a --work-dir that --eval and --eval-all then read
+    with tempfile.TemporaryDirectory() as work:
+        for stem in ported:
+            batch = _recipe_batch(stem)
+            argv = _recipe_argv(stem, seed)
+            if stem == RECIPE_FLAGSHIP:
+                argv += ["--work-dir", f"{work}/{stem}"]
+            print(f"recipe {stem}: train_cli {' '.join(argv)}", flush=True)
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            with _recording_shapes(shapes):
+                text = _cli(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = launches[f"recipes_{stem}"] = ops.launch_counts()
+            loss = _final_loss(text, stem)
+            ran = {k for k, v in counts.items() if v}
+            if ran != set(RECIPE_KERNELS[stem]):
+                raise AssertionError(f"recipe {stem}: launched {sorted(ran)}, expected "
+                                     f"{sorted(RECIPE_KERNELS[stem])}")
+            print(f"recipe {stem}: batch {batch}, final loss {loss:.4f}, {wall:.2f} s in "
+                  f"train_cli.main (build, steps, validation); launches {counts}", flush=True)
+            session = train_cli.setup(_recipe_argv(stem, seed))
+            times[stem] = _time_step(
+                f"recipe {stem} step", session.trainer, next(iter(session.train_batches())),
+                "samples", torch.Generator(device=dev).manual_seed(seed),
+                f"recipe {stem} step b={batch}" if profile else None, size=batch, top=6)
+            del session
+            gc.collect()
+            torch.cuda.empty_cache()
+
+        flagship = ["--cfg", _recipe_yaml(RECIPE_FLAGSHIP), "--steps-per-epoch", str(RECIPE_STEPS),
+                    f"train.batch_size={_recipe_batch(RECIPE_FLAGSHIP)}", f"seed={seed}",
+                    "--work-dir", f"{work}/{RECIPE_FLAGSHIP}"]
+        with _recording_shapes(shapes):
+            text = _cli(flagship + ["--eval"])
+            if "eval:" not in text or "'acc'" not in text:
+                raise AssertionError(f"--eval printed {text!r}")
+            text = _cli(flagship + ["--eval-all"])
+            if text.count("eval epoch") != 1 or "best:" not in text:
+                raise AssertionError(f"--eval-all printed {text!r}")
+    with tempfile.TemporaryDirectory() as tree:
+        _jpeg_tree(tree, seed)
+        ops.reset_launch_counts()
+        with _recording_shapes(shapes):
+            text = _cli(["--cfg", _recipe_yaml("imagenet_metatransformer"), "--epochs", "1",
+                         "--data", tree, f"train.batch_size={RECIPE_BATCH}", f"seed={seed}"])
+        launches["recipes_imagenet_data"] = ops.launch_counts()
+        _final_loss(text, "imagenet --data")
+        if "val_acc" not in text:
+            raise AssertionError(f"--data printed {text!r}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    launched = {k for counts in launches.values() for k, v in counts.items() if v}
+    if {name for name, _ in shapes} != launched:
+        raise AssertionError(f"kernels launched {sorted(launched)}, shapes recorded for "
+                             f"{sorted({name for name, _ in shapes})}")
+    print(f"recipe kernel shapes ({len(shapes)} kernel calls of distinct shape): "
+          + "; ".join(f"{name} {shape}" for name, shape in sorted(shapes, key=str)), flush=True)
+    worst = _hold_shapes(shapes, seed, dev)
+    for stem in RECIPE_HELD:
+        _hold_recipe(stem, seed)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # the bare point-classifier step of phase_point_train beside the flagship's
+    trainer = _make_point_trainer("frozen", seed)
+    _time_step("point train step frozen (phase_point_train's Trainer)", trainer,
+               _point_batch(seed), "clouds", _dropout_generator(seed))
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("recipe step times (ms, median of " + str(TIMING_REPS) + ", " + smi + "): "
+          + json.dumps({k: round(v, 4) for k, v in times.items()}), flush=True)
+    return launches, worst
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3069,8 +3458,8 @@ def main() -> None:
                          "one video forward at b=8, one full-track video step, the point "
                          "and segmenter forwards at their largest batch, one full-track "
                          "point step, the text and audio modalities, the fused trio at "
-                         "b=8 and b=1, one bucketed and one packed serving flush and the "
-                         "graph predictor")
+                         "b=8 and b=1, one bucketed and one packed serving flush, the "
+                         "graph predictor and one step of each ported recipe")
     ap.add_argument("--bwd-times", action="store_true",
                     help="only build and time the flash backward kernels and one step of "
                          "each video track, to compare checkouts in turns; prints no result")
@@ -3085,6 +3474,9 @@ def main() -> None:
     ap.add_argument("--serving", action="store_true",
                     help="only build and drive the serving edge (Dispatcher, ServingDaemon, "
                          "byte payloads), the graph predictor and the demo; prints no result")
+    ap.add_argument("--recipes", action="store_true",
+                    help="only build and train every ported recipe YAML through train_cli "
+                         "at full width (phase_recipes); prints no result")
     args = ap.parse_args()
 
     phase_device()
@@ -3103,6 +3495,9 @@ def main() -> None:
         phase_serving(args.seed, dev, args.profile)
         phase_graph(args.seed, dev, args.profile)
         phase_demo(args.seed)
+        return
+    if args.recipes:
+        phase_recipes(args.seed, dev, args.profile)
         return
     errs = phase_kernels(args.seed, dev)
     phase_autograd(args.seed, dev)
@@ -3147,6 +3542,9 @@ def main() -> None:
     serving_launches = phase_serving(args.seed, dev, args.profile)
     graph_launches = phase_graph(args.seed, dev, args.profile)
     phase_demo(args.seed)
+    recipe_launches, recipe_errs = phase_recipes(args.seed, dev, args.profile)
+    for name, err in recipe_errs.items():
+        errs[name] = max(errs[name], err)
     phase_native_host(args.seed)
     phase_host_copies(args.seed, dev)
 
@@ -3172,6 +3570,7 @@ def main() -> None:
         **model_launches,
         **serving_launches,
         **graph_launches,
+        **recipe_launches,
     }
     on_path = {  # the kernels each path must have gone through
         "serve": ("attn_sublayer", "mlp_sublayer"),
@@ -3202,6 +3601,8 @@ def main() -> None:
         # head_dim 24: no kernel admits it, in either package (phase_graph
         # asserts that these ran none)
         "graph_bf16": (), "graph_performer_bf16": (),
+        **{f"recipes_{stem}": kinds for stem, kinds in RECIPE_KERNELS.items()},
+        "recipes_imagenet_data": FUSED_KERNELS,
     }
     for name, (_, t, bucket) in MODALITY_SPECS.items():
         depth, fps = 12, name == "point"

@@ -1,5 +1,5 @@
-"""Optimizer factory: AdamW / Adam / SGD + gradient clipping + layer-wise LR
-decay over a parameter tree.
+"""Optimizer factory: AdamW / Adam / SGD / LAMB / LARS / AdaBelief / RAdam +
+gradient clipping + layer-wise LR decay over a parameter tree.
 
 Port of ``metatransformer_tpu/train/optim.py``, which chains optax
 transforms. optax is not available to this package, so the update rules are
@@ -10,6 +10,15 @@ written out here with optax's semantics:
   then times ``-lr``. ``adam`` is the same without the decay term.
 * ``sgd``: Nesterov momentum as ``optax.trace``: ``t = g + mu * t``, update
   ``g + mu * t``.
+* ``lamb``: the Adam direction with eps 1e-6, plus ``wd * p``, scaled by the
+  trust ratio ``|p| / |u|`` per leaf (1 where either norm is 0).
+* ``lars``: ``u = g + wd * p`` scaled by ``0.001 * |p| / |u|`` per leaf,
+  then by ``-lr``, then plain momentum ``t = u + mu * t`` (the trace holds
+  the scaled update, as ``optax.lars`` chains it).
+* ``adabelief``: the second moment tracks ``(g - m)^2`` plus 1e-16, and eps
+  1e-16 outside the root.
+* ``radam``: the Adam direction rectified by ``r`` once the variance is
+  tractable (``rho >= 5``), the bias-corrected first moment before that.
 * ``grad_clip``: ``clip_by_global_norm``: gradients are scaled by
   ``max_norm / max(norm, max_norm)``, with no epsilon added to the norm.
 * a learning-rate schedule is called with the number of updates already
@@ -38,13 +47,13 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-# Optimizers of the reference's zoo that are not ported yet.
-_NOT_PORTED = {
-    name: "ROADMAP.md queue 1, item 4 (the four extra optimizers)"
-    for name in ("lamb", "lars", "adabelief", "radam")
-}
-_PORTED = ("adamw", "adam", "sgd")
-_EPS = 1e-8
+_PORTED = ("adamw", "adam", "sgd", "lamb", "lars", "adabelief", "radam")
+# optimizers with optax's ScaleByAdamState-like state (count, mu, nu)
+_ADAM_LIKE = ("adamw", "adam", "lamb", "adabelief", "radam")
+_EPS = {"adamw": 1e-8, "adam": 1e-8, "lamb": 1e-6, "adabelief": 1e-16, "radam": 1e-8}
+_ADABELIEF_EPS_ROOT = 1e-16
+_RADAM_THRESHOLD = 5.0
+_LARS_TRUST = 0.001
 
 TOKENIZER_KEYS = ("tokenizer", "pos_embed", "prefix_tokens", "cls_token", "cls_pos")
 
@@ -130,11 +139,12 @@ class TreeOptimizer(torch.optim.Optimizer):
         self.lr_scales = [
             1.0 if scale_fn is None else scale_fn(p, leaf) for p, leaf in flat
         ]
-        # per-leaf moments: adam(w) has mu and nu, sgd has its trace in mu
+        # per-leaf moments: the Adam-like ones have mu and nu, sgd and lars
+        # keep their trace in mu
         self.mu = [torch.zeros_like(leaf, dtype=torch.float32) for leaf in leaves]
         self.nu = (
             [torch.zeros_like(leaf, dtype=torch.float32) for leaf in leaves]
-            if spec.name in ("adamw", "adam")
+            if spec.name in _ADAM_LIKE
             else []
         )
 
@@ -162,15 +172,47 @@ class TreeOptimizer(torch.optim.Optimizer):
                 update = (g + spec.momentum * t) * (-lr)
                 p.add_((update * s).to(p.dtype))
             return None
+        if spec.name == "lars":
+            for p, g, t, s in zip(self.leaves, grads, self.mu, self.lr_scales):
+                u = g.float() + spec.weight_decay * p
+                u = u * _trust_ratio(p, u, _LARS_TRUST)
+                t.mul_(spec.momentum).add_(u * (-lr))
+                p.add_((t * s).to(p.dtype))
+            return None
         b1, b2 = spec.betas
         c1, c2 = 1.0 - b1**self.count, 1.0 - b2**self.count
+        eps = _EPS[spec.name]
+        rectify = None
+        if spec.name == "radam":
+            # in fp32, as a jitted optax step computes it: rho is a small
+            # difference of two terms near 2 / (1 - b2), so its rounding
+            # moves r by up to 0.6% at the first rectified steps
+            f32 = np.float32
+            rho_inf = 2.0 / (1.0 - b2) - 1.0
+            b2t = f32(b2) ** f32(self.count)
+            rho = f32(rho_inf) - f32(2 * self.count) * b2t / (f32(1.0) - b2t)
+            if rho >= _RADAM_THRESHOLD:
+                rectify = float(np.sqrt(
+                    (rho - f32(4.0)) * (rho - f32(2.0)) * f32(rho_inf)
+                    / (f32((rho_inf - 4.0) * (rho_inf - 2.0)) * rho)))
         for p, g, m, v, s in zip(self.leaves, grads, self.mu, self.nu, self.lr_scales):
             g = g.float()
             m.mul_(b1).add_(g, alpha=1.0 - b1)
-            v.mul_(b2).addcmul_(g, g, value=1.0 - b2)
-            update = (m / c1) / ((v / c2).sqrt_().add_(_EPS))
-            if spec.name == "adamw":
+            if spec.name == "adabelief":
+                d = g - m
+                v.mul_(b2).addcmul_(d, d, value=1.0 - b2).add_(_ADABELIEF_EPS_ROOT)
+            else:
+                v.mul_(b2).addcmul_(g, g, value=1.0 - b2)
+            if spec.name == "radam" and rectify is None:
+                update = m / c1
+            else:
+                update = (m / c1) / ((v / c2).sqrt_().add_(eps))
+                if rectify is not None:
+                    update.mul_(rectify)
+            if spec.name in ("adamw", "lamb"):
                 update.add_(p, alpha=spec.weight_decay)
+            if spec.name == "lamb":
+                update.mul_(_trust_ratio(p, update, 1.0))
             update.mul_(-lr)
             p.add_((update * s).to(p.dtype))
         return None
@@ -180,33 +222,47 @@ class TreeOptimizer(torch.optim.Optimizer):
     def state_leaves(self) -> List[Any]:
         """The state as the flat list of leaves that
         ``jax.tree_util.tree_leaves`` gives for the reference's optax state
-        of the same recipe: adam(w) ``[count, *mu, *nu]``, sgd ``[*trace]``,
-        then the schedule's own count if the learning rate is a schedule."""
+        of the same recipe: the Adam-like ones ``[count, *mu, *nu]``, sgd
+        ``[*trace]``, then the schedule's own count if the learning rate is a
+        schedule; lars puts the schedule's count first (``[count, *trace]``),
+        as its chain scales by the rate before the trace."""
         leaves: List[Any] = []
-        if self.spec.name in ("adamw", "adam"):
+        schedule = [np.int32(self.count)] if callable(self.spec.lr) else []
+        if self.spec.name in _ADAM_LIKE:
             leaves.append(np.int32(self.count))
+        if self.spec.name == "lars":
+            leaves += schedule
         leaves += list(self.mu) + list(self.nu)
-        if callable(self.spec.lr):
-            leaves.append(np.int32(self.count))
+        if self.spec.name != "lars":
+            leaves += schedule
         return leaves
 
     def load_state_leaves(self, leaves: Sequence[Any]) -> None:
         """Inverse of :meth:`state_leaves` (numpy arrays or tensors)."""
         leaves = list(leaves)
         n = len(self.leaves)
-        adam = self.spec.name in ("adamw", "adam")
-        want = (1 + 2 * n if adam else n) + (1 if callable(self.spec.lr) else 0)
+        adam = self.spec.name in _ADAM_LIKE
+        schedule = callable(self.spec.lr)
+        want = (1 + 2 * n if adam else n) + (1 if schedule else 0)
         if len(leaves) != want:
             raise ValueError(f"optimizer state has {len(leaves)} leaves, expected {want}")
-        if adam:
+        if adam or (schedule and self.spec.name == "lars"):
             self.count = int(np.asarray(_to_host(leaves.pop(0))))
+        if schedule and self.spec.name != "lars":
+            self.count = int(np.asarray(_to_host(leaves.pop())))
         for dst, src in zip(list(self.mu) + list(self.nu), leaves):
             src = torch.tensor(_to_host(src))
             if src.shape != dst.shape:
                 raise ValueError(f"state leaf {tuple(src.shape)} != {tuple(dst.shape)}")
             dst.copy_(src)
-        if callable(self.spec.lr):
-            self.count = int(np.asarray(_to_host(leaves[-1])))
+
+
+def _trust_ratio(p: torch.Tensor, u: torch.Tensor, coefficient: float) -> torch.Tensor:
+    """``coefficient * |p| / |u|`` (Frobenius norms of the whole leaf), 1
+    where either norm is 0: ``optax.scale_by_trust_ratio``."""
+    pn, un = p.float().norm(), u.norm()
+    ratio = coefficient * pn / un
+    return torch.where((pn == 0) | (un == 0), torch.ones_like(ratio), ratio)
 
 
 def _to_host(x):
@@ -214,9 +270,11 @@ def _to_host(x):
 
 
 def state_from_optax(opt: TreeOptimizer, count, mu: Dict[str, Any], nu: Dict[str, Any]) -> None:
-    """Load an optax Adam/AdamW state (``ScaleByAdamState``'s ``count``,
-    ``mu`` and ``nu`` as numpy trees shaped like the trainable tree) into
-    ``opt``, so both packages can go on from one mid-training state."""
+    """Load an optax Adam-like state (``count``, ``mu`` and ``nu`` as numpy
+    trees shaped like the trainable tree: ``ScaleByAdamState``, or
+    ``ScaleByBeliefState`` for adabelief) into ``opt``, so both packages can
+    go on from one mid-training state. For sgd and lars ``mu`` is the trace
+    and ``nu`` is empty."""
     opt.count = int(np.asarray(count))
     for dst_list, tree in ((opt.mu, mu), (opt.nu, nu)):
         for dst, (_, src) in zip(dst_list, flatten_with_paths(tree)):
@@ -225,9 +283,10 @@ def state_from_optax(opt: TreeOptimizer, count, mu: Dict[str, Any], nu: Dict[str
 
 def state_to_optax(opt: TreeOptimizer):
     """``(count, mu, nu)`` of ``opt`` as numpy, trees shaped like the
-    trainable tree: the inverse of :func:`state_from_optax`."""
+    trainable tree (``nu`` empty for sgd and lars): the inverse of
+    :func:`state_from_optax`."""
     to_tree = lambda leaves: _unflatten_like(opt.tree, [_to_host(t) for t in leaves])
-    return np.int32(opt.count), to_tree(opt.mu), to_tree(opt.nu)
+    return np.int32(opt.count), to_tree(opt.mu), to_tree(opt.nu) if opt.nu else {}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -254,12 +313,8 @@ def make_optimizer(
     momentum: float = 0.9,
     grad_clip: Optional[float] = None,
 ) -> OptimizerSpec:
-    """The reference's optimizer zoo, by name (adamw, adam, sgd ported)."""
+    """The reference's optimizer zoo, by name."""
     name = name.lower()
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"optimizer {name!r} is not ported yet: {_NOT_PORTED[name]}"
-        )
     if name not in _PORTED:
         raise ValueError(f"unknown optimizer {name!r}")
     return OptimizerSpec(

@@ -12,7 +12,7 @@ Under the BF16 policy a frozen encoder is cast once, outside the step
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -55,22 +55,20 @@ def _accuracy(logits, label) -> torch.Tensor:
     return (logits.argmax(dim=-1) == label).float().mean()
 
 
-def _to_micro(batch: Dict[str, Any], accum_steps: int):
-    for x in batch.values():
-        if x is None:
-            continue
-        if x.dim() == 0 or x.shape[0] % accum_steps:
-            raise ValueError(
-                f"batch axis {tuple(x.shape)} not divisible by accum_steps={accum_steps}"
-            )
-    chunks = {
-        k: (None if v is None else v.reshape((accum_steps, -1) + tuple(v.shape[1:])))
-        for k, v in batch.items()
-    }
-    return [
-        {k: (None if v is None else v[i]) for k, v in chunks.items()}
-        for i in range(accum_steps)
-    ]
+def _to_micro(batch: Any, accum_steps: int) -> List[Any]:
+    """The batch as ``accum_steps`` micro-batches: every leaf of the nested
+    dicts split along axis 0 (``None`` leaves stay ``None``), as the
+    reference maps over the whole batch pytree."""
+    if isinstance(batch, dict):
+        parts = {k: _to_micro(v, accum_steps) for k, v in batch.items()}
+        return [{k: p[i] for k, p in parts.items()} for i in range(accum_steps)]
+    if batch is None:
+        return [None] * accum_steps
+    if batch.dim() == 0 or batch.shape[0] % accum_steps:
+        raise ValueError(
+            f"batch axis {tuple(batch.shape)} not divisible by accum_steps={accum_steps}"
+        )
+    return list(batch.reshape((accum_steps, -1) + tuple(batch.shape[1:])).unbind(0))
 
 
 def make_train_step(

@@ -2,7 +2,8 @@
 
 Port of ``metatransformer_tpu/train/trainer.py`` (epoch loops of the same
 shape: train epoch -> validate -> checkpoint / best / EMA). The parameters
-live on one device; each batch (numpy arrays or tensors) is moved there.
+live on one device; each batch (nested dicts of numpy arrays or tensors, as
+the reference's pytrees) is moved there.
 The step runs eagerly, so ``jit_step`` has no counterpart. Metrics stay on
 the device and are read on the host only every ``log_every`` steps and at
 the end of an epoch, so steps queue up without waiting for one another.
@@ -47,6 +48,18 @@ class TrainerConfig:
     # resumable checkpoint, return from fit cleanly (auto_resume redoes the
     # interrupted epoch on restart).
     handle_preemption: bool = False
+
+
+def batch_to_device(tree: Any, device: torch.device) -> Any:
+    """A batch (nested dicts of numpy arrays or tensors, ``None`` leaves
+    kept) with every array leaf a tensor on ``device``. Copies run
+    asynchronously only from pinned host memory."""
+    if isinstance(tree, dict):
+        return {k: batch_to_device(v, device) for k, v in tree.items()}
+    if tree is None:
+        return None
+    t = torch.as_tensor(tree)
+    return t.to(device, non_blocking=t.is_pinned())
 
 
 def _to_device_tree(tree: Any, device: torch.device, trainable: bool) -> Any:
@@ -110,10 +123,7 @@ class Trainer:
         return step_lib.merge_params(self.trainable, self.frozen)
 
     def _to_device(self, batch: Dict[str, Any]) -> Dict[str, Any]:
-        return {
-            k: None if v is None else torch.as_tensor(v).to(self.device, non_blocking=True)
-            for k, v in batch.items()
-        }
+        return batch_to_device(batch, self.device)
 
     def train_epoch(
         self, batches: Iterable[Dict[str, Any]], generator: Optional[torch.Generator] = None
@@ -148,7 +158,7 @@ class Trainer:
         tr = self.ema_params if self.cfg.use_ema else self.trainable
         params = step_lib.merge_params(tr, self.frozen)
         for batch in batches:
-            x = torch.as_tensor(batch["input"]).to(self.device)
+            x = batch_to_device(batch["input"], self.device)
             p = self.forward(params, x, None).float().cpu().numpy()
             y = np.asarray(
                 batch["label"].cpu() if isinstance(batch["label"], torch.Tensor)

@@ -1,1 +1,2 @@
-"""Host-side utilities: checkpoints and logging."""
+"""Host-side utilities: checkpoints, logging, metrics, segmentation
+evaluation and the profiling harness."""

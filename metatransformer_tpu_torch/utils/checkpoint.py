@@ -8,8 +8,9 @@ the reference's, so a checkpoint written by either package loads in the
 other. Tensors are written as numpy arrays (bf16 leaves widen exactly to
 fp32); :func:`load` returns tensors on ``device`` (None: the card).
 
-The reference's orbax pair (``save_orbax`` / ``load_orbax``) is not ported
-yet: ROADMAP.md queue 1, item 7.
+The reference's orbax pair (``save_orbax`` / ``load_orbax``) has no
+counterpart: ``orbax.checkpoint`` imports JAX, which this package never
+does (ROADMAP.md queue 1, item 7).
 """
 
 from __future__ import annotations

@@ -144,7 +144,7 @@ def _opt_tree(seed):
 
 @pytest.mark.parametrize("layer_decay", [None, 0.75])
 @pytest.mark.parametrize("grad_clip", [None, 0.5])
-@pytest.mark.parametrize("name", ["adamw", "adam", "sgd"])
+@pytest.mark.parametrize("name", ["adamw", "adam", "sgd", "lamb", "lars", "adabelief", "radam"])
 def test_optimizer_matches_optax(name, grad_clip, layer_decay):
     """20 updates on seeded random gradients over a tree with a stacked
     encoder subtree, under a warm-up + cosine schedule."""
@@ -158,9 +158,12 @@ def test_optimizer_matches_optax(name, grad_clip, layer_decay):
     state = tx.init(jparams)
     params = convert.from_numpy(np_params, "cpu", requires_grad=True)
     opt = spec.init(params)
+    # jitted, as the reference's Trainer runs it: RAdam's fp32 rho rounds
+    # differently eagerly (b2**count by repeated products, not exp/log)
+    update = jax.jit(tx.update)
     for step in range(20):
         grads = _opt_tree(100 + step)
-        updates, state = tx.update(jax.tree.map(jnp.asarray, grads), state, jparams)
+        updates, state = update(jax.tree.map(jnp.asarray, grads), state, jparams)
         jparams = optax.apply_updates(jparams, updates)
         for (_, p), (_, g) in zip(optim.flatten_with_paths(params), optim.flatten_with_paths(grads)):
             p.grad = torch.tensor(g)
@@ -182,10 +185,63 @@ def test_optimizer_matches_optax(name, grad_clip, layer_decay):
 
 @pytest.mark.parametrize("name", ["lamb", "lars", "adabelief", "radam"])
 def test_unported_optimizers_raise(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        optim.make_optimizer(name)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        optim.build(name, 1e-3)
+    """The four optimizers that once raised (ROADMAP queue 1 item 4) are
+    ported: both factories build them, as the reference's zoo does."""
+    assert optim.make_optimizer(name).name == name
+    assert optim.build(name, 1e-3, layer_decay=0.75).lr_scale_fn is not None
+
+
+@pytest.mark.parametrize("name", ["lamb", "lars", "adabelief", "radam"])
+def test_optimizer_state_crosses_packages(name):
+    """8 optax updates, the state carried into the port through
+    ``state_from_optax``, then 3 updates in both packages: parameters at
+    1e-5, and ``state_to_optax`` equal to optax's state (step count and
+    moments). RAdam's rectified branch starts at the 6th update."""
+    tx = joptim.build(name, 1e-2, weight_decay=0.05)
+    np_params = _opt_tree(2)
+    jparams = jax.tree.map(jnp.asarray, np_params)
+    state = tx.init(jparams)
+
+    update = jax.jit(tx.update)  # as the reference's Trainer runs it
+
+    def optax_step(seed):
+        nonlocal state, jparams
+        g = jax.tree.map(jnp.asarray, _opt_tree(seed))
+        updates, state = update(g, state, jparams)
+        jparams = optax.apply_updates(jparams, updates)
+
+    def moments():
+        if name == "lars":  # chain(decay, trust ratio, rate, trace)
+            return np.int32(0), state[0][3].trace, {}
+        inner = state[0][0]  # chain(scale_by_adam / scale_by_belief, ...)
+        return inner.count, inner.mu, inner.nu
+
+    for step in range(8):
+        optax_step(400 + step)
+    params = convert.from_numpy(jax.tree.map(np.asarray, jparams), "cpu", requires_grad=True)
+    opt = optim.build(name, 1e-2, weight_decay=0.05).init(params)
+    count, mu, nu = moments()
+    optim.state_from_optax(opt, np.asarray(count), jax.tree.map(np.asarray, mu),
+                           jax.tree.map(np.asarray, nu))
+    for step in range(3):
+        optax_step(500 + step)
+        grads = _opt_tree(500 + step)
+        for (_, p), (_, g) in zip(optim.flatten_with_paths(params), optim.flatten_with_paths(grads)):
+            p.grad = torch.tensor(g)
+        opt.step()
+    for (path, p), (_, want) in zip(
+        optim.flatten_with_paths(params), optim.flatten_with_paths(jax.tree.map(np.asarray, jparams))
+    ):
+        np.testing.assert_allclose(
+            p.detach().numpy(), want, rtol=1e-5, atol=1e-5, err_msg="/".join(path))
+    count, mu, nu = moments()
+    got_count, got_mu, got_nu = optim.state_to_optax(opt)
+    if name != "lars":
+        assert int(got_count) == int(count) == 11
+    for got, want in ((got_mu, mu), (got_nu, nu)):
+        for (path, a), (_, b) in zip(optim.flatten_with_paths(got), optim.flatten_with_paths(
+                jax.tree.map(np.asarray, want))):
+            np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-5, err_msg="/".join(path))
 
 
 def test_unknown_optimizer_raises_value_error():

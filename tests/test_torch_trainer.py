@@ -253,3 +253,119 @@ def test_logger_and_exp_directory(tmp_path):
     assert os.path.isdir(os.path.join(path, "checkpoint")) and "a-b-" in path
     port_logger.Wandb(enabled=False).log({"x": 1})
     port_logger.Tensorboard(None).scalar("x", 1.0, 0)
+
+
+# ------------------------------------------- dict batches (tabular, FP32)
+
+from metatransformer_tpu.models import tabular_classifier as jtab  # noqa: E402
+from metatransformer_tpu.tokenizers import tabular as jtabtok  # noqa: E402
+from metatransformer_tpu.train import step as jstep  # noqa: E402
+from metatransformer_tpu_torch.core import convert  # noqa: E402
+from metatransformer_tpu_torch.models import tabular_classifier as tab  # noqa: E402
+from metatransformer_tpu_torch.tokenizers import tabular as tabtok  # noqa: E402
+from metatransformer_tpu_torch.train import step as step_lib  # noqa: E402
+
+_TAB = dict(vocab_sizes=(5, 7, 4), n_continuous=2, dim=16)
+JTAB_CFG = jtab.TabularClassifierConfig(
+    tokenizer=jtabtok.TabularTokenizerConfig(**_TAB),
+    encoder=jenc.EncoderConfig(dim=16, depth=1, num_heads=2), num_classes=3)
+TAB_CFG = tab.TabularClassifierConfig(
+    tokenizer=tabtok.TabularTokenizerConfig(**_TAB),
+    encoder=enc.EncoderConfig(dim=16, depth=1, num_heads=2), num_classes=3)
+
+
+def _dict_batch():
+    """A nested batch: the input is a dict (with a None leaf), as the
+    tabular, time-series, segmentation and graph recipes give."""
+    rng = np.random.default_rng(3)
+    return {
+        "input": {
+            "tab": {
+                "categorical": rng.integers(0, 4, (8, 3)).astype(np.int32),
+                "continuous": rng.standard_normal((8, 2)).astype(np.float32),
+            },
+            "unused": None,
+        },
+        "label": rng.integers(0, 3, 8).astype(np.int64),
+    }
+
+
+def _tab_forward(p, x, generator):
+    t = x["tab"]
+    return tab.forward(p, t["categorical"], TAB_CFG, continuous=t["continuous"],
+                       precision=enc.FP32)
+
+
+def _jtab_forward(p, x, rng):
+    t = x["tab"]
+    return jtab.forward(p, t["categorical"], JTAB_CFG, continuous=t["continuous"],
+                        precision=jenc.FP32)
+
+
+def _tab_params():
+    return jax.tree.map(np.asarray, jtab.init(JTAB_CFG, jax.random.PRNGKey(4)))
+
+
+def _dict_trainer(np_params, accum_steps):
+    return Trainer(
+        # SGD: AdamW's first update, lr * g / |g|, would amplify the
+        # rounding of a near-zero gradient into the step
+        _tab_forward, optim.make_optimizer("sgd", lr=0.1),
+        convert.from_numpy(np_params, "cpu"),
+        TrainerConfig(epochs=1, log_every=1000, accum_steps=accum_steps),
+        frozen_keys=(), device="cpu",
+    )
+
+
+def test_dict_batch_trainer_step_accumulates_and_matches_jax():
+    """One Trainer step on a nested dict batch: at accum_steps=2 it equals
+    the step at accum_steps=1 (FP32, 1e-6), and both equal JAX's
+    make_train_step on the same batch and parameters (1e-5)."""
+    np_params, batch = _tab_params(), _dict_batch()
+    one, two = _dict_trainer(np_params, 1), _dict_trainer(np_params, 2)
+    s1, s2 = one.train_epoch([batch]), two.train_epoch([batch])
+    np.testing.assert_allclose(s2["loss"], s1["loss"], rtol=1e-6)
+    flat1 = optim.flatten_with_paths(one.trainable)
+    flat2 = optim.flatten_with_paths(two.trainable)
+    for (path, a), (_, b) in zip(flat1, flat2):
+        np.testing.assert_allclose(b.grad.numpy(), a.grad.numpy(), rtol=1e-6, atol=1e-6,
+                                   err_msg="/".join(path))
+        np.testing.assert_allclose(b.detach().numpy(), a.detach().numpy(), rtol=1e-6,
+                                   atol=1e-6, err_msg="/".join(path))
+
+    tx = joptim.make_optimizer("sgd", lr=0.1)
+    jparams = jax.tree.map(jnp.asarray, np_params)
+    jbatch = jax.tree.map(jnp.asarray, batch)
+    for accum, trainer in ((1, one), (2, two)):
+        step = jax.jit(jstep.make_train_step(_jtab_forward, tx, accum_steps=accum))
+        new, _, metrics = step(jparams, {}, tx.init(jparams), jbatch, jax.random.PRNGKey(0))
+        np.testing.assert_allclose(s1["loss"], float(metrics["loss"]), rtol=1e-5)
+        for (path, p), (_, want) in zip(optim.flatten_with_paths(trainer.trainable),
+                                        optim.flatten_with_paths(jax.tree.map(np.asarray, new))):
+            np.testing.assert_allclose(p.detach().numpy(), want, rtol=1e-5, atol=1e-5,
+                                       err_msg=f"accum {accum}: " + "/".join(path))
+    # the validation pass takes the dict input too
+    assert 0.0 <= one.validate([batch])["acc"] <= 1.0
+
+
+def test_micro_batches_split_every_leaf_of_a_nested_batch():
+    batch = {"input": {"a": torch.arange(8).reshape(4, 2), "b": {"c": torch.ones(4)},
+                       "none": None}, "label": torch.arange(4)}
+    micro = step_lib._to_micro(batch, 2)
+    assert len(micro) == 2
+    assert torch.equal(micro[1]["input"]["a"], torch.tensor([[4, 5], [6, 7]]))
+    assert micro[0]["input"]["b"]["c"].shape == (2,) and micro[1]["input"]["none"] is None
+    assert torch.equal(micro[0]["label"], torch.tensor([0, 1]))
+    batch["input"]["b"]["c"] = torch.ones(3)
+    with pytest.raises(ValueError, match=r"batch axis \(3,\) not divisible by accum_steps=2"):
+        step_lib._to_micro(batch, 2)
+
+
+def test_accuracy_of_absent_and_structured_labels_is_zero():
+    """As the reference's step computes it (step.py:86): no label, or a
+    dict label (the time-series reconstruction recipes), gives 0."""
+    logits = torch.randn(4, 3)
+    assert step_lib._accuracy(logits, None).item() == 0.0
+    assert step_lib._accuracy(logits, {"y": torch.zeros(4), "observed": torch.ones(4)}).item() == 0.0
+    assert float(jstep._accuracy(jnp.zeros((4, 3)), None)) == 0.0
+    assert float(jstep._accuracy(jnp.zeros((4, 3)), {"y": jnp.zeros(4)})) == 0.0
