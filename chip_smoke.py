@@ -7,9 +7,10 @@ a whole ViT-L14 image classifier (served and trained), all 12
 modalities of ``pipeline.Data2Seq`` with the fused multimodal trio, the
 bucket ladder and the audio, hyper-spectral, tabular and time-series models
 (served), the serving edge (``serving.Dispatcher``, ``ServingDaemon``, byte
-payloads), the graph predictor, the demo CLI and every ported training
-recipe through ``train_cli`` on one NVIDIA GPU through the hand-written
-kernels.
+payloads), the graph predictor, the demo CLI, the dense-prediction family
+(ViT-Adapter with UperNet, test-time augmentation, windowed blocks and
+Mask2Former at 512^2) and every ported training recipe through
+``train_cli`` on one NVIDIA GPU through the hand-written kernels.
 
     python3 chip_smoke.py [--seed N] [--profile]
     python3 chip_smoke.py --bwd-times      # only the flash backward and video-step times
@@ -17,6 +18,7 @@ kernels.
     python3 chip_smoke.py --fps-plans      # only #7 under its launch plan and variants of it
     python3 chip_smoke.py --serving        # only the serving edge, the graph predictor, the demo
     python3 chip_smoke.py --recipes        # only every ported recipe YAML through train_cli
+    python3 chip_smoke.py --dense          # only phase_dense and the dense recipes' holds and steps
 
 Phases (any failed check raises, so the process exits non-zero):
 
@@ -112,22 +114,38 @@ Phases (any failed check raises, so the process exits non-zero):
     kernel launched: head_dim 24), FP32 against the CPU at 1e-4, ms and
     graphs/s; then ``demo.main`` on the card for ``--modality image
     --synthetic`` and a WAV file;
-13a. the training entry point: ``train_cli.main`` as a user runs it (no
-    ``--device``, no ``--smoke``: the card, full width) on each of the 25
+13a. dense prediction at the ADE20K YAMLs' full width (ViT-B16 adapter,
+    512^2, 150 classes, BF16): the UperNet segmentor serves b = 1 and 2 (12
+    flash forwards a request, T = 1024), ``tta_inference`` at b = 1 (T =
+    576, 1024, 1600; 72 flash forwards; probabilities sum to 1), the
+    windowed adapter at b = 2 (8 of each fused sublayer at 18 windows of
+    T = 196, 4 flash forwards; one backward of its loss: 8 launches of #3,
+    4 of #5 and #6), the Mask2Former segmentor at b = 2 (its
+    attention masks recorded from the plain run and replayed); each against
+    the plain versions, launches exactly; the card's antialiased bilinear and
+    bicubic resizes (forward and backward) against the CPU; the three
+    forwards timed at b = 2 (``--profile``: by kernel, and the share of the
+    UperNet forward outside the 12 ViT blocks);
+13b. the training entry point: ``train_cli.main`` as a user runs it (no
+    ``--device``, no ``--smoke``: the card, full width) on each of the 28
     ported recipe YAMLs of ``metatransformer_tpu/configs/``, 1 epoch of 2
     steps at ``train.batch_size=min(yaml, 8)`` (modelnet40 at its own 32,
-    ViT-B16); each recipe's launches counted under ``recipes_<stem>`` and
-    held to the kernels its T resolves to, a finite final loss, its step
-    timed as ``train_cli.setup`` builds it (median of 20, batch on the
-    card); ``--eval`` and ``--eval-all`` on modelnet40's work dir,
+    the three dense recipes at 2; ViT-B16); each recipe's launches counted
+    under ``recipes_<stem>`` and held to the kernels its T resolves to, a
+    finite final loss, its step timed as ``train_cli.setup`` builds it
+    (median of 20, batch on the card); ``--eval`` and ``--eval-all`` on modelnet40's work dir,
     ``--data`` on a JPEG tree the phase writes for imagenet; the shape of
     every kernel call of these runs recorded, and each kernel held against
     its plain version at each of those shapes (T = 9 ... 2876, ViT-L14's
     widths, the fp32 route, FPS over 1024 ... 8192 points) at the bounds of
     phases 3, 9 and 10; modelnet40 and s3dis (4096 points, T = 1025, the
     segmenter's first training on the card) held against two steps on the
-    plain versions at the point bounds; the bare point-classifier step
-    timed beside the flagship's;
+    plain versions at the point bounds, and so are ade20k_upernet and
+    ade20k_mask2former (Mask2Former's attention masks, assignments and loss
+    points recorded from the plain run and replayed; then both runs again
+    with the head's products at full precision, losses within the plain
+    bound); the bare
+    point-classifier step timed beside the flagship's;
 14. the host: the C++ host runtime (grid subsampling, kNN) against its
     numpy twins, and host-to-device copy times of an image and a cloud
     batch;
@@ -188,6 +206,16 @@ LOGIT_ATOL, LOGIT_RTOL = 0.15, 0.1
 # whole update within UPDATE_REL_L2 in relative L2 norm. The card measures
 # 0.9993 / 0.028 on the frozen track and 0.9944 / 0.094 on the full track.
 LOSS_TOL = 0.05
+# Mask2Former's loss sums 30 point-sampled terms (cls, mask, dice of 10
+# layers; about 300 at init) from a head whose matmuls round both operands
+# to bf16 (the reference's Precision.DEFAULT under BF16): a kernel's rounding
+# moves an operand across a bf16 rounding edge now and then, one ulp (2**-8
+# relative) at a time. Its losses are held at 1% of the plain run's, what
+# LOSS_TOL is of a 5-nat cross-entropy; the card measures 0.2-0.35%. The
+# hold then runs both again with the head's products at "highest", and
+# those losses must agree within LOSS_TOL (the card: 0.03 of 335): what the
+# kernels move, the head's bf16 rounding magnifies.
+M2F_LOSS_RTOL = 1e-2
 UPDATE_RTOL, UPDATE_MIN_FRACTION, UPDATE_REL_L2 = 0.1, 0.98, 0.2
 # The first step's gradient of that leaf, before AdamW normalises it, is held
 # to the plain run's within GRAD_STEP_REL_L2 in relative L2 norm on every
@@ -268,6 +296,37 @@ FPS_MAIN_CASE = (64, 1024, 256)  # the classifier's b = 64 request
 # ViT-L14 (enc.LARGE): D = 1024, 16 heads of 64, MLP 4096, T = 257 at patch
 # 14 on 224^2; its fused sublayers are held at b = 8.
 LARGE_D, LARGE_HEADS, LARGE_MLP, LARGE_T, LARGE_BATCH = 1024, 16, 4096, 257, 8
+
+# Dense prediction at the ADE20K YAMLs' full width: ViT-B16 adapter on 512^2
+# (a 32 x 32 grid, no cls token: T = 1024, flash), 150 classes, BF16. TTA's
+# 0.75 / 1.25 scales give T = 576 / 1600. The windowed adapter of the COCO /
+# ADE recipes pads the grid to 42 and runs 9 windows of 14 x 14 an image:
+# 18 windows of T = 196 (fused sublayers) at b = 2.
+DENSE_YAML = "ade20k_mask2former_metatransformer"  # the backbone and head widths
+DENSE_BATCHES = (1, 2)
+DENSE_WINDOWS = (True, True, False) * 4
+WINDOW_BATCH, WINDOW_T = 18, 196
+DENSE_PROB_TOL = 1e-3  # TTA's averaged probabilities sum to 1
+# jax.image.resize on the card: F.interpolate(antialias=True), bilinear and
+# bicubic, forward and backward, against the CPU (fp32, unit-normal inputs;
+# max abs error over max(1, max |value|)). (in, out, channels, method): the
+# PPM's pools of the 1/32 map, Mask2Former's attention-mask resizes of the
+# 1/4 masks, TTA's image resizes, the bicubic pos-embed resizes, the logits'
+# resize to the input. The card's kernels compute each sample's position in
+# fp32, the CPU's closer (it matches jax.image.resize to 1e-6 on the CPU,
+# tests/test_torch_vit_adapter.py), so near a coordinate of 512 a position
+# may be off by an ulp of 512 (6.1e-5; measured 1.9e-5 of value at
+# 512 -> 384): a case's bound is RESIZE_TOL or two such ulps times the
+# largest step between neighbouring input values (forward) or 4 |cotangent|
+# (backward: a hat of slope at most 1, at most 4 outputs on an input),
+# whichever is larger.
+RESIZE_TOL = 1e-5
+DENSE_RESIZES = [
+    *[(16, s, 768, "bilinear") for s in (1, 2, 3, 6)],
+    *[(128, s, 100, "bilinear") for s in (16, 32, 64)],
+    (512, 384, 3, "bilinear"), (512, 640, 3, "bilinear"),
+    (32, 24, 768, "bicubic"), (32, 40, 768, "bicubic"), (128, 512, 150, "bilinear"),
+]
 
 CSRC = "metatransformer_tpu_torch/ops/csrc/"
 KERNELS = {
@@ -422,6 +481,7 @@ def phase_kernels(seed: int, dev) -> dict:
                   sorted({(b, t) for b, t, _ in MODALITY_SPECS.values() if t <= 256})]
         if kind == "attn_sublayer":
             cases += [(b, t, _prefix_bias(b, t, dev)) for b, t in MODALITY_MASKED_SHAPES]
+        cases.append((WINDOW_BATCH, WINDOW_T, None))  # the windowed adapter's blocks
         worst[kind] = 0.0
         for b, t, bias in cases:
             args = _sublayer_inputs(kind, b, seed + b + t, dev, t)
@@ -467,6 +527,7 @@ def phase_bwd_kernel(seed: int, dev, cases=None, d: int = D, heads: int = HEADS,
         cases = [(b, T, None) for b in KERNEL_BATCHES] + [(8, T, _ragged_bias(dev))]
         # the point classifier's training batch, and its largest request's shape
         cases += [(POINT_TRAIN_BATCH, POINT_T, None), (POINT_SERVE_BATCHES[-1], POINT_T, None)]
+        cases.append((WINDOW_BATCH, WINDOW_T, None))  # the windowed adapter's blocks
     for b, t, bias in cases:
         args = _bwd_inputs(b, seed + b + t, dev, t, d)
         with torch.no_grad():
@@ -719,9 +780,9 @@ def _make_trainer(track: str, seed: int, lr: float = 1e-3, cfg=None):
 
 
 def _largest_leaf(tree):
-    from metatransformer_tpu_torch.train import optim
+    from metatransformer_tpu_torch.core.tree import leaves_with_path
 
-    return max(optim.flatten_with_paths(tree), key=lambda kv: kv[1].numel())
+    return max(leaves_with_path(tree), key=lambda kv: kv[1].numel())
 
 
 def _train_tracks(what, make_trainer, batch, steps, per_step, weight_grads, lrs,
@@ -1069,7 +1130,7 @@ def phase_train_times(seed: int, dev, profile: bool):
 
 def _profile_step(step, what: str = "full-track step", steps: int = 3, top: int = 28):
     """Device time by kernel over a few runs of ``step`` (torch.profiler),
-    the ``top`` kernels by time."""
+    the ``top`` kernels by time; returns the device busy us a run."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1088,6 +1149,7 @@ def _profile_step(step, what: str = "full-track step", steps: int = 3, top: int 
     for key, us, count in sorted(rows, key=lambda r: -r[1])[:top]:
         print(f"  {us:10.1f} us  {100 * us / busy:6.2f}%  x{count:6.1f}  {key[:110]}",
               flush=True)
+    return busy
 
 
 # --------------------------------------------------------------------------
@@ -1116,6 +1178,8 @@ FLASH_CASES = [  # b, h, t, head_dim, dtype, mask: False (dense), True (ragged) 
     # and 3072 buckets ragged
     (8, 12, 1212, 64, BF, False), (8, 12, 2876, 64, BF, False), (8, 12, 2876, 64, F32, False),
     (4, 12, 1600, 64, BF, True), (4, 12, 3072, 64, BF, True),
+    # the ViT-Adapter's 32 x 32 grid at b = 2, TTA's 24 x 24 and 40 x 40
+    (2, 12, 1024, 64, BF, False), (1, 12, 576, 64, BF, False), (1, 12, 1600, 64, BF, False),
 ]
 
 
@@ -2388,23 +2452,32 @@ def _expected_launches(t: int, depth: int, fps: bool = False) -> dict:
     return counts
 
 
-def _held(what: str, fn, requests, expected: dict, shape, keep=None) -> dict:
+def _held(what: str, fn, requests, expected: dict, shape, keep=None, pins=None) -> dict:
     """Answer each request with the kernels (launches of each held to
     ``expected``), then again with the plain versions on the card; outputs
     finite, of ``shape`` and within the serving tolerance (at the positions
-    ``keep(request)`` names, where given). Returns the run's launches."""
+    ``keep(request)`` names, where given). ``pins`` (a ``_Replayed``): the
+    plain versions answer first under ``pins.record()`` and the kernels
+    under ``pins.replay()``. Returns the run's launches."""
+    import contextlib
+
     from metatransformer_tpu_torch import ops
 
     with torch.no_grad():
+        if pins is not None:
+            with _plain_versions(), pins.record():
+                want = [fn(raw) for raw in requests]
         ops.reset_launch_counts()
         answers, per_request = [], []
-        for raw in requests:
-            answers.append(fn(raw))
-            per_request.append(ops.launch_counts())
+        with pins.replay() if pins is not None else contextlib.nullcontext():
+            for raw in requests:
+                answers.append(fn(raw))
+                per_request.append(ops.launch_counts())
         torch.cuda.synchronize()
         launches = ops.launch_counts()
-        with _plain_versions():
-            want = [fn(raw) for raw in requests]
+        if pins is None:
+            with _plain_versions():
+                want = [fn(raw) for raw in requests]
     _check_launches_per_request(per_request, expected, what)
     errs, top = [], 0.0
     for raw, got, ref in zip(requests, answers, want):
@@ -3090,11 +3163,291 @@ def phase_demo(seed: int) -> None:
 
 
 # --------------------------------------------------------------------------
+# Dense prediction: ViT-Adapter, UperNet, TTA, the windowed adapter and
+# Mask2Former at the ADE20K YAMLs' full width
+# --------------------------------------------------------------------------
+
+
+class _Replayed:
+    """Functions whose outputs carry no gradient, taken as recorded: under
+    ``record()`` each call's output is kept, in call order; under
+    ``replay()`` each call returns the kept output of the same call (again
+    in every later pass). Mask2Former's attention masks are
+    ``sigmoid(x) < 0.5`` of a resized logit, its assignment is a linear sum
+    assignment on a cost and its loss points the most uncertain of an
+    oversampled set: a rounding difference flips each of them at its edge.
+    A run recorded with the plain versions and replayed with the kernels
+    takes the same masks, matches and points, so what differs is the
+    kernels' rounding alone."""
+
+    def __init__(self, *targets):
+        self.targets, self.kept, self.calls = targets, {}, {}
+
+    def _patched(self, mode):
+        from contextlib import ExitStack
+
+        stack = ExitStack()
+        for mod, name in self.targets:
+            kept = self.kept.setdefault(name, [])
+            self.calls[name] = 0
+
+            def fn(*a, _orig=getattr(mod, name), _kept=kept, _name=name, **k):
+                if mode == "record":
+                    _kept.append(_orig(*a, **k))
+                    return _kept[-1]
+                self.calls[_name] += 1
+                return _kept[(self.calls[_name] - 1) % len(_kept)]
+
+            stack.enter_context(mock.patch.object(mod, name, fn))
+        return stack
+
+    def record(self):
+        self.kept.clear()
+        return self._patched("record")
+
+    def replay(self):
+        return self._patched("replay")
+
+    def check(self, what: str) -> None:
+        """Every replayed function ran as often as it was recorded (or a
+        whole multiple of it)."""
+        for name, kept in self.kept.items():
+            if not kept or self.calls[name] % len(kept):
+                raise AssertionError(f"{what}: {name} replayed {self.calls[name]} times, "
+                                     f"recorded {len(kept)}")
+
+
+def _m2f_head_highest():
+    """The Mask2Former head (and its pixel decoder) at matmul precision
+    "highest" whatever the caller asks for."""
+    from metatransformer_tpu_torch.heads import mask2former as m2f
+
+    apply = m2f.apply
+    return mock.patch.object(m2f, "apply", lambda p, f, c, mm="highest": apply(p, f, c, "highest"))
+
+
+def _mask2former_pins() -> _Replayed:
+    from metatransformer_tpu_torch.heads import mask2former as m2f
+
+    return _Replayed((m2f, "attention_mask"), (m2f, "_host_lsa"),
+                     (m2f, "uncertain_point_coords"))
+
+
+def _dense_cfgs():
+    """(UperNet segmentor, Mask2Former segmentor) configs at the published
+    widths of ``DENSE_YAML``, as ``recipes.py`` builds its backbone."""
+    from metatransformer_tpu_torch import recipes
+    from metatransformer_tpu_torch.configs import load_config
+    from metatransformer_tpu_torch.models import segmentor
+
+    cfg = load_config(_recipe_yaml(DENSE_YAML))
+    bcfg, m = recipes._adapter_cfg(cfg, smoke=False), cfg.model
+    return (segmentor.SegmentorConfig(backbone=bcfg, num_classes=m.num_classes),
+            segmentor.Mask2FormerSegmentorConfig(
+                backbone=bcfg, num_classes=m.num_classes, head_channels=m.head_channels,
+                num_queries=m.num_queries, num_decoder_layers=m.num_decoder_layers,
+                num_encoder_layers=m.num_encoder_layers, num_heads=m.num_heads))
+
+
+def _resize_on_card(seed: int, dev) -> float:
+    """``vit_adapter.resize`` (``jax.image.resize``: antialiased
+    ``F.interpolate``) forward and backward on the card against the CPU at
+    each of DENSE_RESIZES; the worst error over max(1, max |value|)."""
+    from metatransformer_tpu_torch.models import vit_adapter as va
+
+    g = torch.Generator().manual_seed(seed)
+    worst = 0.0
+    for hin, hout, c, method in DENSE_RESIZES:
+        x = torch.randn(1, hin, hin, c, generator=g)
+        cot = torch.randn(1, hout, hout, c, generator=g)
+        runs = []
+        for where in ("cpu", dev):
+            leaf = x.to(where).detach().requires_grad_(True)
+            y = va.resize(leaf, (hout, hout), method)
+            y.backward(cot.to(where))
+            runs.append((y.detach().cpu(), leaf.grad.cpu()))
+        (y_cpu, g_cpu), (y_card, g_card) = runs
+        errs = [(b - a).abs().max().item() / max(1.0, a.abs().max().item())
+                for a, b in ((y_cpu, y_card), (g_cpu, g_card))]
+        ulps = 2 * float(np.spacing(np.float32(max(hin, hout))))
+        step = max(x.diff(dim=1).abs().max().item(), x.diff(dim=2).abs().max().item())
+        tols = [max(RESIZE_TOL, ulps * step), max(RESIZE_TOL, ulps * 4 * cot.abs().max().item())]
+        print(f"resize {method} {hin}->{hout} x{c} on the card vs the CPU: forward "
+              f"{errs[0]:.3g} (tol {tols[0]:.3g}), backward {errs[1]:.3g} (tol {tols[1]:.3g})",
+              flush=True)
+        if errs[0] > tols[0] or errs[1] > tols[1]:
+            raise AssertionError(f"resize {method} {hin}->{hout}: the card disagrees with the CPU")
+        worst = max(worst, *errs)
+    return worst
+
+
+def _dense_windowed_step(params, cfg, images, seed: int, n_win: int, n_global: int) -> dict:
+    """The forward and backward of ``seg_loss`` through the windowed
+    segmentor, with the kernels and again with the plain versions from the
+    same weights: the windowed blocks' backward is #3, the global blocks'
+    #5 and #6, one launch each a block; loss within LOSS_TOL, the gradient
+    of the largest leaf within GRAD_STEP_REL_L2. Returns the launches."""
+    from metatransformer_tpu_torch import ops
+    from metatransformer_tpu_torch.core import encoder as enc
+    from metatransformer_tpu_torch.models import segmentor
+    from metatransformer_tpu_torch.train import trainer as trainer_lib
+
+    b, img = images.shape[:2]
+    g = torch.Generator().manual_seed(seed + 2)
+    labels = torch.randint(0, cfg.num_classes, (b, img, img), generator=g).to(images.device)
+
+    def step():
+        tree = trainer_lib._to_device_tree(params, images.device, trainable=True)
+        loss = segmentor.seg_loss(segmentor.forward(tree, images, cfg, enc.BF16), labels)
+        loss.backward()
+        path, leaf = _largest_leaf(tree)
+        return loss.item(), path, leaf.grad
+
+    ops.reset_launch_counts()
+    loss, path, grad = step()
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    with _plain_versions():
+        ref_loss, _, ref_grad = step()
+    want = {"attn_sublayer": n_win, "mlp_sublayer": n_win, "attn_sublayer_bwd": n_win,
+            "flash_fwd": n_global, "flash_bwd_dq": n_global, "flash_bwd_dkv": n_global}
+    if launches != {k: want.get(k, 0) for k in launches}:
+        raise AssertionError(f"dense windowed step: launches {launches}, expected {want}")
+    rel_l2 = ((grad - ref_grad).norm() / ref_grad.norm()).item()
+    print(f"dense windowed step b={b}: loss {loss:.5f} against plain {ref_loss:.5f} (tol "
+          f"{LOSS_TOL}); gradient of {'/'.join(path)} {tuple(grad.shape)} relative L2 "
+          f"{rel_l2:.4f} (max {GRAD_STEP_REL_L2}); launches {launches}", flush=True)
+    if abs(loss - ref_loss) > LOSS_TOL or not rel_l2 <= GRAD_STEP_REL_L2:
+        raise AssertionError("dense windowed step differs from the plain versions")
+    return launches
+
+
+def phase_dense(seed: int, dev, profile: bool = False) -> dict:
+    """The dense-prediction slice at ``DENSE_YAML``'s full width (ViT-B16
+    adapter, 512^2, 150 classes, BF16, seeded weights), through the port's
+    entry points with no device named: (a) the UperNet segmentor serves
+    b = 1 and 2, 12 flash forwards a request; (b) ``tta_inference`` at
+    b = 1, six forwards at T = 576, 1024, 1600 (72 flash forwards), its
+    probabilities summing to 1; (c) the windowed adapter serves b = 2, 8
+    of each fused sublayer and 4 flash forwards; (d) the Mask2Former
+    segmentor (256 channels, 100 queries, 9 decoder and 6 encoder layers)
+    serves b = 2 with its attention masks pinned (``_Replayed``); each held
+    against the plain versions on the card, launches exactly; the windowed
+    segmentor's loss is also backpropagated once (#3 on the windowed
+    blocks, #5 / #6 on the global ones); (e) the card's antialiased resize
+    against the CPU; (f) the forward times of (a), (c) and (d) at b = 2,
+    and under ``profile`` their device time by kernel and the share of the
+    UperNet forward spent outside the 12 ViT blocks. Returns the launches
+    by path."""
+    from metatransformer_tpu_torch.core import encoder as enc
+    from metatransformer_tpu_torch.heads import mask2former as m2f
+    from metatransformer_tpu_torch.models import segmentor
+
+    t0 = time.perf_counter()
+    ucfg, mcfg = _dense_cfgs()
+    bcfg = ucfg.backbone
+    img, classes, depth = bcfg.img_size, ucfg.num_classes, bcfg.encoder.depth
+    gen = torch.Generator().manual_seed(seed)
+    params = segmentor.init(ucfg, gen)  # no device named: the card
+    mparams = {"backbone": params["backbone"], "head": m2f.init(mcfg.head, gen)}
+    if params["head"]["cls_b"].device.type != "cuda":
+        raise AssertionError("the segmentor did not land on the card")
+    g = torch.Generator().manual_seed(seed + 1)
+    images = {b: torch.randn(b, img, img, 3, generator=g).to(dev) for b in DENSE_BATCHES}
+    flash = _expected_launches((img // bcfg.patch_size) ** 2, depth)
+    launches = {}
+
+    def upernet(x):
+        return segmentor.forward(params, x, ucfg, enc.BF16)
+
+    runs = [_held(f"dense upernet b={b}", upernet, [images[b]], flash, (b, img, img, classes))
+            for b in DENSE_BATCHES]
+    launches["dense_upernet"] = {k: sum(r[k] for r in runs) for k in runs[0]}
+
+    def tta(x):
+        return segmentor.tta_inference(params, x, ucfg, precision=enc.BF16)
+
+    scales = (0.75, 1.0, 1.25)
+    tokens = [(round(img * s / bcfg.patch_size)) ** 2 for s in scales]
+    if any(_expected_launches(t, depth) != flash for t in tokens):
+        raise AssertionError(f"TTA's T = {tokens} do not all resolve to flash")
+    launches["dense_tta"] = _held("dense tta b=1", tta, [images[1]],
+                                  {"flash_fwd": 2 * len(scales) * depth}, (1, img, img, classes))
+    with torch.no_grad():
+        total = tta(images[1]).sum(-1)
+    if (total - 1).abs().max().item() > DENSE_PROB_TOL:
+        raise AssertionError(f"TTA probabilities sum to {total.min().item()} ... "
+                             f"{total.max().item()}")
+    print(f"dense tta: T = {tokens}, probabilities sum to 1 within "
+          f"{(total - 1).abs().max().item():.3g} (tol {DENSE_PROB_TOL})", flush=True)
+
+    wcfg = dataclasses.replace(ucfg, backbone=dataclasses.replace(bcfg, window_attn=DENSE_WINDOWS))
+    n_win = sum(DENSE_WINDOWS)
+
+    def windowed(x):
+        return segmentor.forward(params, x, wcfg, enc.BF16)
+
+    launches["dense_windowed"] = _held(
+        "dense windowed b=2", windowed, [images[2]],
+        {"attn_sublayer": n_win, "mlp_sublayer": n_win, "flash_fwd": depth - n_win},
+        (2, img, img, classes))
+    launches["dense_windowed_step"] = _dense_windowed_step(
+        params, wcfg, images[2], seed, n_win, depth - n_win)
+
+    def mask2former(x):
+        all_cls, all_masks = segmentor.forward_mask2former(mparams, x, mcfg, enc.BF16)
+        return segmentor.mask2former_semantic(all_cls, all_masks, x.shape[1:3])
+
+    pins = _Replayed((m2f, "attention_mask"))
+    launches["dense_mask2former"] = _held("dense mask2former b=2", mask2former, [images[2]],
+                                          flash, (2, img, img, classes), pins=pins)
+    pins.check("dense mask2former")
+
+    worst_resize = _resize_on_card(seed, dev)
+
+    smi, x = _smi(), images[2]
+    paths = {"upernet": upernet, "windowed": windowed, "mask2former": mask2former}
+    with torch.no_grad():
+        times = {name: _median_ms(lambda fn=fn: fn(x)) for name, fn in paths.items()}
+        print(f"dense forward times b=2 (ms, median of {TIMING_REPS}, {smi}): "
+              + json.dumps({k: round(v, 4) for k, v in times.items()}), flush=True)
+        if profile:
+            busy = {name: _profile_step(lambda fn=fn: fn(x), f"dense {name} forward b=2", top=16)
+                    for name, fn in paths.items()}
+            blocks_params = enc.cast_params(params["backbone"]["encoder"], enc.BF16)
+            h0 = torch.randn(2, (img // bcfg.patch_size) ** 2, bcfg.encoder.dim,
+                             generator=g).to(dev, torch.bfloat16)
+
+            def vit_blocks():
+                h = h0
+                for j in range(depth):
+                    h = enc.block(h, {k: v[j] for k, v in blocks_params.items()},
+                                  bcfg.encoder, None, enc.BF16)
+                return h
+
+            inside = _profile_step(vit_blocks, "the 12 ViT blocks alone b=2", top=8)
+            print(f"dense upernet forward b=2: {100 * (1 - inside / busy['upernet']):.2f}% of "
+                  f"its device time outside the ViT blocks (SPM, MSDeformAttn, ConvFFN, "
+                  f"UperNet, resizes)", flush=True)
+    del params, mparams
+    torch.cuda.empty_cache()
+    print(f"phase_dense: {time.perf_counter() - t0:.1f} s, worst resize error "
+          f"{worst_resize:.3g}", flush=True)
+    return launches
+
+
+# --------------------------------------------------------------------------
 # The training entry point: every ported recipe YAML through train_cli
 # --------------------------------------------------------------------------
 
 RECIPE_FLAGSHIP = "modelnet40_metatransformer"  # runs at its own batch, 32
 RECIPE_BATCH, RECIPE_STEPS = 8, 2  # the others: min(yaml, 8), 1 epoch of 2 steps
+# The dense recipes train at the reference's 2 images a GPU
+# (ade20k_upernet_metatransformer.yaml: 8 GPUs x 2), where a full-width
+# Mask2Former step fits the card.
+DENSE_RECIPES = ("ade20k_mask2former_metatransformer", "ade20k_upernet_metatransformer",
+                 "coco_mask2former_metatransformer")
+DENSE_RECIPE_BATCH = 2
 FUSED_PATH, FLASH_PATH = FUSED_KERNELS, FLASH_KERNELS
 # The kernels each recipe's training launches, by where its encoder's T
 # falls (``core/encoder.py`` ``_resolve_impl``): the fused sublayers and
@@ -3102,8 +3455,11 @@ FUSED_PATH, FLASH_PATH = FUSED_KERNELS, FLASH_KERNELS
 # point path; under FP32 (the two MAE losses) no fused kernel, and only
 # flash past 512 tokens.
 RECIPE_KERNELS = {
+    "ade20k_mask2former_metatransformer": FLASH_PATH,  # adapter, 32 x 32 grid: T = 1024
+    "ade20k_upernet_metatransformer": FLASH_PATH,  # T = 1024
     "adult_tabtransformer": FUSED_PATH,  # T = 9
     "bankm_tabtransformer": FUSED_PATH,  # T = 10
+    "coco_mask2former_metatransformer": FLASH_PATH,  # T = 1024
     "etth1_metatransformer": FUSED_PATH,  # T = 96
     "ettm1_imputation_metatransformer": FUSED_PATH,  # T = 96
     "imagenet_large_metatransformer": FUSED_PATH,  # ViT-L14, T = 257
@@ -3130,8 +3486,10 @@ RECIPE_KERNELS = {
     "xray_chest_metatransformer": FUSED_PATH,  # T = 197
 }
 # held against the plain versions (losses, first gradient and update of the
-# largest trainable leaf, at the point bounds)
-RECIPE_HELD = ("modelnet40_metatransformer", "s3dis_metatransformer")
+# largest trainable leaf, at the point bounds); Mask2Former with its masks,
+# assignments and loss points pinned to the plain run's (_mask2former_pins)
+RECIPE_HELD = ("ade20k_mask2former_metatransformer", "ade20k_upernet_metatransformer",
+               "modelnet40_metatransformer", "s3dis_metatransformer")
 
 
 def _recipe_yaml(stem: str) -> str:
@@ -3272,15 +3630,20 @@ def _recipe_batch(stem: str) -> int:
     from metatransformer_tpu_torch.configs import load_config
 
     yaml_batch = load_config(_recipe_yaml(stem)).train.batch_size
-    return yaml_batch if stem == RECIPE_FLAGSHIP else min(yaml_batch, RECIPE_BATCH)
+    if stem == RECIPE_FLAGSHIP:
+        return yaml_batch
+    return min(yaml_batch, DENSE_RECIPE_BATCH if stem in DENSE_RECIPES else RECIPE_BATCH)
 
 
 def _hold_recipe(stem: str, seed: int) -> None:
     """Two Trainer steps of the recipe as ``train_cli`` builds it (its
     optimizer, schedule and frozen keys) on its first synthetic batch, then
     the same two steps from the same weights with the plain versions:
-    losses within LOSS_TOL, the first gradient and the update of the
-    largest trainable leaf at the point bounds."""
+    losses within LOSS_TOL (Mask2Former: M2F_LOSS_RTOL of the plain run's),
+    the first gradient and the update of the largest trainable leaf at the
+    point bounds. Mask2Former recipes run the
+    plain versions first, recording their masks, assignments and loss
+    points, and the kernels replay them."""
     from metatransformer_tpu_torch import train_cli
 
     argv = _recipe_argv(stem, seed)
@@ -3299,10 +3662,36 @@ def _hold_recipe(stem: str, seed: int) -> None:
         update = leaf.detach() - start
         return path, losses, grad, update, start
 
-    path, losses, grad, update, start = run()
-    with _plain_versions():
-        _, ref_losses, ref_grad, ref_update, _ = run()
+    if "mask2former" in stem:
+        pins = _mask2former_pins()
+        with _plain_versions(), pins.record():
+            _, ref_losses, ref_grad, ref_update, _ = run()
+        with pins.replay():
+            path, losses, grad, update, start = run()
+        pins.check(f"recipe {stem}")
+        # the control: both runs again with the head's products at full
+        # precision, to see how much of the loss gap the head's bf16
+        # operand rounding adds to the kernels' own
+        with _m2f_head_highest():
+            with _plain_versions(), pins.record():
+                _, hi_ref_losses, _, _, _ = run()
+            with pins.replay():
+                _, hi_losses, _, _, _ = run()
+        pins.check(f"recipe {stem}, head at highest")
+        hi_diffs = [abs(a - b) for a, b in zip(hi_losses, hi_ref_losses)]
+        print(f"recipe {stem} vs plain versions, head products at 'highest' in both: "
+              f"losses " + " ".join(f"{v:.5f}" for v in hi_losses) + ", |loss diff| "
+              + " ".join(f"{v:.5f}" for v in hi_diffs) + f" (tol {LOSS_TOL})", flush=True)
+        if not all(np.isfinite(hi_losses)) or max(hi_diffs) > LOSS_TOL:
+            raise AssertionError(f"recipe {stem} with the head at 'highest': losses "
+                                 f"{hi_losses} against plain {hi_ref_losses}")
+    else:
+        path, losses, grad, update, start = run()
+        with _plain_versions():
+            _, ref_losses, ref_grad, ref_update, _ = run()
     diffs = [abs(a - b) for a, b in zip(losses, ref_losses)]
+    loss_tol = max(LOSS_TOL, M2F_LOSS_RTOL * max(map(abs, ref_losses))) if (
+        "mask2former" in stem) else LOSS_TOL
     grad_rel_l2 = ((grad - ref_grad).norm() / ref_grad.norm()).item()
     atol = 2.0 ** (int(np.floor(np.log2(start.abs().max().item()))) - 7)
     inside = ((update - ref_update).abs()
@@ -3312,11 +3701,11 @@ def _hold_recipe(stem: str, seed: int) -> None:
     print(f"recipe {stem} vs plain versions, {RECIPE_STEPS} steps at batch "
           f"{_recipe_batch(stem)}: "
           f"losses " + " ".join(f"{v:.5f}" for v in losses) + ", |loss diff| "
-          + " ".join(f"{v:.5f}" for v in diffs) + f" (tol {LOSS_TOL}); {'/'.join(path)} "
+          + " ".join(f"{v:.5f}" for v in diffs) + f" (tol {loss_tol:.4g}); {'/'.join(path)} "
           f"{tuple(start.shape)}: first gradient relative L2 {grad_rel_l2:.4f} (max "
           f"{GRAD_STEP_REL_L2}), update {inside:.4f} of elements inside (min {min_fraction}), "
           f"relative L2 {rel_l2:.4f} (max {max_rel_l2})", flush=True)
-    if not all(np.isfinite(losses)) or max(diffs) > LOSS_TOL:
+    if not all(np.isfinite(losses)) or max(diffs) > loss_tol:
         raise AssertionError(f"recipe {stem}: losses {losses} against plain {ref_losses}")
     if not grad_rel_l2 <= GRAD_STEP_REL_L2:
         raise AssertionError(f"recipe {stem}: first gradient of {path} differs from the plain run")
@@ -3343,6 +3732,30 @@ def _recipe_argv(stem: str, seed: int) -> list:
     return ["--cfg", _recipe_yaml(stem), "--epochs", "1",
             "--steps-per-epoch", str(RECIPE_STEPS), f"train.batch_size={_recipe_batch(stem)}",
             f"seed={seed}"]
+
+
+def phase_dense_recipes(seed: int, dev, profile: bool = False) -> None:
+    """``--dense`` only: the dense recipes' holds (those in RECIPE_HELD) and
+    step times, as ``phase_recipes`` takes them, without the other recipes."""
+    import gc
+
+    from metatransformer_tpu_torch import train_cli
+
+    times = {}
+    for stem in DENSE_RECIPES:
+        if stem in RECIPE_HELD:
+            _hold_recipe(stem, seed)
+        session = train_cli.setup(_recipe_argv(stem, seed))
+        times[stem] = _time_step(
+            f"recipe {stem} step", session.trainer, next(iter(session.train_batches())),
+            "samples", torch.Generator(device=dev).manual_seed(seed),
+            f"recipe {stem} step b={DENSE_RECIPE_BATCH}" if profile else None,
+            size=DENSE_RECIPE_BATCH, top=6)
+        del session
+        gc.collect()
+        torch.cuda.empty_cache()
+    print("dense recipe step times (ms, median of " + str(TIMING_REPS) + ", " + _smi() + "): "
+          + json.dumps({k: round(v, 4) for k, v in times.items()}), flush=True)
 
 
 def phase_recipes(seed: int, dev, profile: bool = False) -> tuple:
@@ -3459,7 +3872,9 @@ def main() -> None:
                          "and segmenter forwards at their largest batch, one full-track "
                          "point step, the text and audio modalities, the fused trio at "
                          "b=8 and b=1, one bucketed and one packed serving flush, the "
-                         "graph predictor and one step of each ported recipe")
+                         "graph predictor, the dense forwards (UperNet, windowed, "
+                         "Mask2Former at b=2, with the share outside the ViT blocks) and "
+                         "one step of each ported recipe")
     ap.add_argument("--bwd-times", action="store_true",
                     help="only build and time the flash backward kernels and one step of "
                          "each video track, to compare checkouts in turns; prints no result")
@@ -3474,6 +3889,9 @@ def main() -> None:
     ap.add_argument("--serving", action="store_true",
                     help="only build and drive the serving edge (Dispatcher, ServingDaemon, "
                          "byte payloads), the graph predictor and the demo; prints no result")
+    ap.add_argument("--dense", action="store_true",
+                    help="only build and run phase_dense, then hold and time the three dense "
+                         "recipes (DENSE_RECIPES) as phase_recipes does; prints no result")
     ap.add_argument("--recipes", action="store_true",
                     help="only build and train every ported recipe YAML through train_cli "
                          "at full width (phase_recipes); prints no result")
@@ -3498,6 +3916,10 @@ def main() -> None:
         return
     if args.recipes:
         phase_recipes(args.seed, dev, args.profile)
+        return
+    if args.dense:
+        phase_dense(args.seed, dev, args.profile)
+        phase_dense_recipes(args.seed, dev, args.profile)
         return
     errs = phase_kernels(args.seed, dev)
     phase_autograd(args.seed, dev)
@@ -3542,6 +3964,7 @@ def main() -> None:
     serving_launches = phase_serving(args.seed, dev, args.profile)
     graph_launches = phase_graph(args.seed, dev, args.profile)
     phase_demo(args.seed)
+    dense_launches = phase_dense(args.seed, dev, args.profile)
     recipe_launches, recipe_errs = phase_recipes(args.seed, dev, args.profile)
     for name, err in recipe_errs.items():
         errs[name] = max(errs[name], err)
@@ -3570,6 +3993,7 @@ def main() -> None:
         **model_launches,
         **serving_launches,
         **graph_launches,
+        **dense_launches,
         **recipe_launches,
     }
     on_path = {  # the kernels each path must have gone through
@@ -3601,6 +4025,10 @@ def main() -> None:
         # head_dim 24: no kernel admits it, in either package (phase_graph
         # asserts that these ran none)
         "graph_bf16": (), "graph_performer_bf16": (),
+        "dense_upernet": ("flash_fwd",), "dense_tta": ("flash_fwd",),
+        "dense_windowed": ("attn_sublayer", "mlp_sublayer", "flash_fwd"),
+        "dense_windowed_step": FUSED_KERNELS + FLASH_KERNELS,
+        "dense_mask2former": ("flash_fwd",),
         **{f"recipes_{stem}": kinds for stem, kinds in RECIPE_KERNELS.items()},
         "recipes_imagenet_data": FUSED_KERNELS,
     }

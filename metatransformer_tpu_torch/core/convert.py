@@ -7,8 +7,8 @@ The released checkpoint is a flat state dict of ``nn.Sequential`` of timm
 ``.npz`` files are the same as the JAX package's, so both packages can
 load one set of weights.
 
-:func:`from_numpy` / :func:`to_numpy` map a nested dict of numpy arrays
-to the same nested dict of tensors and back. They carry the JAX package's
+:func:`from_numpy` / :func:`to_numpy` map nested dicts and lists of numpy
+arrays to the same tree of tensors and back. They carry the JAX package's
 parameter trees (``jax.tree.map(np.asarray, params)``) across unchanged.
 """
 
@@ -22,6 +22,7 @@ import torch
 
 from metatransformer_tpu_torch.core import device as _device
 from metatransformer_tpu_torch.core import encoder as enc
+from metatransformer_tpu_torch.core.tree import tree_map
 
 # timm Block key -> (our leaf name, needs transpose)
 _KEY_MAP = {
@@ -82,26 +83,29 @@ def infer_config(params: Mapping[str, Any]) -> enc.EncoderConfig:
 
 
 def from_numpy(tree: Any, device: _device.Device = None, requires_grad: bool = False) -> Any:
-    """Nested dict of numpy arrays -> the same nested dict of tensors
+    """Nested dicts and lists of numpy arrays -> the same tree of tensors
     (copies) on ``device`` (None: the card). With ``requires_grad`` every
     floating leaf is a leaf tensor that takes a gradient, as a trainable
     tree must be."""
     device = _device.resolve(device)
-    if isinstance(tree, Mapping):
-        return {k: from_numpy(v, device, requires_grad) for k, v in tree.items()}
-    t = torch.tensor(np.asarray(tree), device=device)
-    return t.requires_grad_(True) if requires_grad and t.is_floating_point() else t
+
+    def leaf(a):
+        t = torch.tensor(np.asarray(a), device=device)
+        return t.requires_grad_(True) if requires_grad and t.is_floating_point() else t
+
+    return tree_map(leaf, tree)
 
 
 def to_numpy(tree: Any) -> Any:
-    """Inverse of :func:`from_numpy`. bf16 leaves widen (exactly) to fp32,
-    which numpy can hold."""
-    if isinstance(tree, Mapping):
-        return {k: to_numpy(v) for k, v in tree.items()}
-    t = tree.detach().cpu()
-    if t.dtype == torch.bfloat16:
-        t = t.float()
-    return t.numpy()
+    """Inverse of :func:`from_numpy`: copies, never views of the tensors
+    (a CPU tensor's ``numpy()`` would share its memory). bf16 leaves widen
+    (exactly) to fp32, which numpy can hold."""
+
+    def leaf(t):
+        t = t.detach().to("cpu", copy=True)
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+    return tree_map(leaf, tree)
 
 
 def load_torch_checkpoint(path: str) -> Dict[str, np.ndarray]:

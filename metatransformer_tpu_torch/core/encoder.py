@@ -65,14 +65,73 @@ class Precision:
     @property
     def mm(self) -> str:
         """Matmul precision for stacks outside the encoder that run on fp32
-        activations (the point tokenizer's conv stack): "highest" is full
+        activations (the point tokenizer's conv stack, multi-scale
+        deformable attention, the Mask2Former head): "highest" is full
         fp32, "default" rounds both operands to bf16 and accumulates in
-        fp32, the counterpart of the reference's ``Precision.DEFAULT``."""
+        fp32, the counterpart of the reference's ``Precision.DEFAULT``
+        (:func:`linear_at`, :func:`matmul_at`)."""
         return "default" if self.is_bf16 else "highest"
 
 
 FP32 = Precision(torch.float32)
 BF16 = Precision(torch.bfloat16)
+
+
+def _mm_bf16(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """bf16 [M, K] @ bf16 [K, N] -> fp32 [M, N], or [G, M, K] @ [G, K, N]
+    -> [G, M, N], accumulated in fp32. On the card one tensor-core product
+    with an fp32 result; the CPU has no such call, and an fp32 product of
+    the widened operands is the same sum."""
+    if a.is_cuda:
+        return (torch.mm if a.dim() == 2 else torch.bmm)(a, b, out_dtype=torch.float32)
+    return a.float() @ b.float()
+
+
+class _MatmulBF16(torch.autograd.Function):
+    """``x @ w`` (2-D, or 3-D with one batch axis on both) with both
+    operands rounded to bf16 and an fp32 result; the two products of the
+    backward round the cotangent to bf16 likewise."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        xb, wb = x.to(torch.bfloat16), w.to(torch.bfloat16)
+        ctx.save_for_backward(xb, wb)
+        ctx.dtypes = (x.dtype, w.dtype)
+        return _mm_bf16(xb, wb)
+
+    @staticmethod
+    def backward(ctx, g):
+        xb, wb = ctx.saved_tensors
+        gb = g.to(torch.bfloat16)
+        dx = _mm_bf16(gb, wb.mT).to(ctx.dtypes[0]) if ctx.needs_input_grad[0] else None
+        dw = _mm_bf16(xb.mT, gb).to(ctx.dtypes[1]) if ctx.needs_input_grad[1] else None
+        return dx, dw
+
+
+def _check_mm(mm: str) -> None:
+    if mm not in ("highest", "default"):
+        raise ValueError(f"matmul precision {mm!r}: expected 'highest' or 'default'")
+
+
+def linear_at(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, mm: str) -> torch.Tensor:
+    """``x @ w + b`` over the last axis (w [in, out]) at matmul precision
+    ``mm``; the result is fp32 either way."""
+    _check_mm(mm)
+    if mm == "highest":
+        return F.linear(x, w.t(), b)
+    out = _MatmulBF16.apply(x.reshape(-1, x.shape[-1]), w)
+    return out.add_(b.float()).reshape(*x.shape[:-1], w.shape[1])
+
+
+def matmul_at(a: torch.Tensor, b: torch.Tensor, mm: str) -> torch.Tensor:
+    """``a @ b`` for [..., M, K] @ [..., K, N] with the same leading axes
+    at matmul precision ``mm``; the result is fp32 either way."""
+    _check_mm(mm)
+    if mm == "highest":
+        return a @ b
+    lead = a.shape[:-2]
+    out = _MatmulBF16.apply(a.reshape(-1, *a.shape[-2:]), b.reshape(-1, *b.shape[-2:]))
+    return out.reshape(*lead, a.shape[-2], b.shape[-1])
 
 
 @dataclasses.dataclass(frozen=True)

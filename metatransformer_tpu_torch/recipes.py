@@ -648,9 +648,62 @@ def build_graph(cfg, generator, smoke=False, device=None):
 # ---------------------------------------------------------------------------
 
 
+def _adapter_cfg(cfg, smoke: bool):
+    from metatransformer_tpu_torch.models import vit_adapter
+
+    b = cfg.model.backbone
+    if smoke:
+        return vit_adapter.ViTAdapterConfig(
+            encoder=enc.EncoderConfig(dim=32, depth=2, num_heads=4),
+            img_size=64,
+            patch_size=16,
+            conv_inplane=8,
+            deform_num_heads=4,
+            interaction_indexes=((0, 0), (1, 1)),
+        )
+    return vit_adapter.ViTAdapterConfig(
+        encoder=_encoder_cfg(cfg, False),
+        img_size=b.img_size,
+        patch_size=b.patch_size,
+        deform_num_heads=b.deform_num_heads,
+        interaction_indexes=tuple(tuple(p) for p in b.interaction_indexes),
+    )
+
+
 def build_segmentation(cfg, generator, smoke=False, device=None):
-    """ADE20K UperNet over ViT-Adapter."""
-    _not_ported("the ADE20K UperNet recipe (build_segmentation, models/segmentor.py)", _ITEM_9)
+    """ADE20K UperNet over ViT-Adapter (``Image/segmentation/train.py:100-207``
+    + the ade20k config). The parameters are ``{"backbone", "head"}``: the
+    CLI freezes and layer-decays only a top-level ``"encoder"``, so the whole
+    model trains at one rate, as in the reference."""
+    from metatransformer_tpu_torch.models import segmentor
+
+    device = _device.resolve(device)
+    bcfg = _adapter_cfg(cfg, smoke)
+    mcfg = segmentor.SegmentorConfig(backbone=bcfg, num_classes=cfg.model.num_classes)
+    params = segmentor.init(mcfg, generator, device)
+    img = bcfg.img_size
+
+    def forward(p, x, gen):
+        x = batch_to_device(x, device)
+        logits = segmentor.forward(p, x["image"], mcfg, precision=enc.BF16)
+        return segmentor.seg_loss(logits, x["seg_label"])
+
+    def synth(batch_size, n_batches, seed):
+        rng = np.random.default_rng(seed)
+        for _ in range(n_batches):
+            labels = rng.integers(0, cfg.model.num_classes, (batch_size, img, img))
+            labels[:, :4] = 255  # ignore region
+            yield {
+                "input": {
+                    "image": _f32(rng.standard_normal((batch_size, img, img, 3))),
+                    "seg_label": labels.astype(np.int32),
+                },
+            }
+
+    return Recipe(
+        params, forward, synth, loss_fn=_identity_loss, classification=False,
+        best_mode="min",
+    )
 
 
 def build_point_seg(cfg, generator, smoke=False, device=None):
@@ -758,8 +811,65 @@ def _build_point_transformer_seg(cfg, generator, smoke=False, device=None):
 
 
 def build_mask2former(cfg, generator, smoke=False, device=None):
-    """ADE20K / COCO Mask2Former."""
-    _not_ported("the Mask2Former recipe (build_mask2former, heads/mask2former.py)", _ITEM_9)
+    """ADE20K / COCO Mask2Former (mask2former_head.py + the msdeformattn pixel
+    decoder) over ViT-Adapter; each layer's Hungarian matching runs on the
+    host. The random points come from the step's generator (a generator
+    seeded 0 where the caller passes none, as the reference's key)."""
+    from metatransformer_tpu_torch.heads import mask2former as m2f
+    from metatransformer_tpu_torch.models import segmentor, vit_adapter
+
+    device = _device.resolve(device)
+    bcfg = _adapter_cfg(cfg, smoke)
+    m = cfg.model
+    if smoke:
+        mcfg = segmentor.Mask2FormerSegmentorConfig(
+            backbone=bcfg, num_classes=m.num_classes, head_channels=32, num_queries=8,
+            num_decoder_layers=1, num_encoder_layers=1, num_heads=4,
+        )
+        num_points = 64
+    else:
+        mcfg = segmentor.Mask2FormerSegmentorConfig(
+            backbone=bcfg, num_classes=m.num_classes, head_channels=m.head_channels,
+            num_queries=m.num_queries, num_decoder_layers=m.num_decoder_layers,
+            num_encoder_layers=m.num_encoder_layers, num_heads=m.num_heads,
+        )
+        num_points = cfg.train.get("num_points", 12544)
+    params = segmentor.init_mask2former(mcfg, generator, device)
+    img = bcfg.img_size
+    hcfg = mcfg.head
+
+    def forward(p, x, gen):
+        x = batch_to_device(x, device)
+        feats = vit_adapter.apply(p["backbone"], x["image"], bcfg, enc.BF16)
+        all_cls, all_masks = m2f.apply(p["head"], feats, hcfg, enc.BF16.mm)
+        if gen is None:
+            gen = torch.Generator(device=device).manual_seed(0)
+        loss, _logs = m2f.loss(all_cls, all_masks, x["gt_labels"], x["gt_masks"],
+                               x["gt_valid"], hcfg, gen, num_points=num_points)
+        return loss
+
+    def synth(batch_size, n_batches, seed):
+        rng = np.random.default_rng(seed)
+        g, mh, mw = 3, img // 4, img // 4
+        for _ in range(n_batches):
+            masks = np.zeros((batch_size, g, mh, mw), np.float32)
+            for b in range(batch_size):
+                for gi in range(g):
+                    y0, x0 = rng.integers(0, mh // 2, 2)
+                    masks[b, gi, y0: y0 + mh // 2, x0: x0 + mw // 2] = 1.0
+            yield {
+                "input": {
+                    "image": _f32(rng.standard_normal((batch_size, img, img, 3))),
+                    "gt_labels": rng.integers(0, m.num_classes, (batch_size, g)).astype(np.int32),
+                    "gt_masks": masks,
+                    "gt_valid": np.ones((batch_size, g), bool),
+                },
+            }
+
+    return Recipe(
+        params, forward, synth, loss_fn=_identity_loss, classification=False,
+        best_mode="min",
+    )
 
 
 def build_htc(cfg, generator, smoke=False, device=None):

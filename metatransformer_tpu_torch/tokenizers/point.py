@@ -18,9 +18,9 @@ import dataclasses
 from typing import Dict, Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 
 from metatransformer_tpu_torch.core import device as _device
+from metatransformer_tpu_torch.core import encoder as enc
 from metatransformer_tpu_torch.ops import point_ops
 
 
@@ -94,48 +94,8 @@ def _instance_norm(x: torch.Tensor) -> torch.Tensor:
     return (x - mean) * torch.rsqrt(var + 1e-5)
 
 
-def _mm_bf16(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """bf16 [M, K] @ bf16 [K, N] -> fp32 [M, N], accumulated in fp32. On the
-    card one tensor-core product with an fp32 result; the CPU has no such
-    call, and an fp32 product of the widened operands is the same sum."""
-    if a.is_cuda:
-        return torch.mm(a, b, out_dtype=torch.float32)
-    return a.float() @ b.float()
-
-
-class _MatmulBF16(torch.autograd.Function):
-    """``x @ w`` with both operands rounded to bf16 and an fp32 result; the
-    two products of the backward round the cotangent to bf16 likewise."""
-
-    @staticmethod
-    def forward(ctx, x, w):
-        xb, wb = x.to(torch.bfloat16), w.to(torch.bfloat16)
-        ctx.save_for_backward(xb, wb)
-        ctx.dtypes = (x.dtype, w.dtype)
-        return _mm_bf16(xb, wb)
-
-    @staticmethod
-    def backward(ctx, g):
-        xb, wb = ctx.saved_tensors
-        gb = g.to(torch.bfloat16)
-        dx = _mm_bf16(gb, wb.t()).to(ctx.dtypes[0]) if ctx.needs_input_grad[0] else None
-        dw = _mm_bf16(xb.t(), gb).to(ctx.dtypes[1]) if ctx.needs_input_grad[1] else None
-        return dx, dw
-
-
-def _linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, mm: str) -> torch.Tensor:
-    """``x @ w + b`` over the last axis at the precision ``mm``; the result
-    is fp32 either way."""
-    if mm == "highest":
-        return F.linear(x, w.t(), b)
-    if mm != "default":
-        raise ValueError(f"matmul precision {mm!r}: expected 'highest' or 'default'")
-    out = _MatmulBF16.apply(x.reshape(-1, x.shape[-1]), w)
-    return out.add_(b.float()).reshape(*x.shape[:-1], w.shape[1])
-
-
 def _conv_stage(x, params, cfg, idx, with_norm_act, mm):
-    x = _linear(x, params[f"w{idx}"], params[f"b{idx}"], mm)
+    x = enc.linear_at(x, params[f"w{idx}"], params[f"b{idx}"], mm)
     if with_norm_act:
         if cfg.norm == "in2d":
             x = _instance_norm(x)

@@ -10,24 +10,19 @@ from typing import Any
 
 import torch
 
-
-def _map(fn, *trees):
-    first = trees[0]
-    if isinstance(first, dict):
-        return {k: _map(fn, *(t[k] for t in trees)) for k in first}
-    return fn(*trees)
+from metatransformer_tpu_torch.core.tree import tree_map
 
 
 def init(params: Any) -> Any:
     """A copy: the optimizer updates the parameters in place, and an aliased
     average would follow them."""
-    return _map(lambda p: p.detach().clone(), params)
+    return tree_map(lambda p: p.detach().clone(), params)
 
 
 @torch.no_grad()
 def update(ema_params: Any, params: Any, decay: float = 0.9999) -> Any:
     """``e <- e * decay + p * (1 - decay)`` in place; returns ``ema_params``."""
-    _map(
+    tree_map(
         lambda e, p: e.mul_(decay).add_(p.detach().to(e.dtype), alpha=1.0 - decay),
         ema_params,
         params,

@@ -47,6 +47,8 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from metatransformer_tpu_torch.core.tree import leaves_with_path, unflatten_like
+
 _PORTED = ("adamw", "adam", "sgd", "lamb", "lars", "adabelief", "radam")
 # optimizers with optax's ScaleByAdamState-like state (count, mu, nu)
 _ADAM_LIKE = ("adamw", "adam", "lamb", "adabelief", "radam")
@@ -95,30 +97,6 @@ def scale_by_layer_decay(
     return scale
 
 
-def flatten_with_paths(tree: Any, prefix: Tuple[str, ...] = ()) -> List[Tuple[Tuple[str, ...], Any]]:
-    """Leaves of a nested dict with their key paths, keys in sorted order:
-    the order in which JAX flattens the same tree, so a list of optimizer
-    state leaves means the same thing in both packages."""
-    if isinstance(tree, dict):
-        out = []
-        for k in sorted(tree):
-            out += flatten_with_paths(tree[k], prefix + (k,))
-        return out
-    return [(prefix, tree)]
-
-
-def _unflatten_like(tree: Any, leaves: List[Any]) -> Any:
-    it = iter(leaves)
-
-    def build(node):
-        if isinstance(node, dict):
-            made = {k: build(node[k]) for k in sorted(node)}
-            return {k: made[k] for k in node}
-        return next(it)
-
-    return build(tree)
-
-
 class TreeOptimizer(torch.optim.Optimizer):
     """An :class:`OptimizerSpec` bound to a tree of leaf tensors.
 
@@ -130,7 +108,7 @@ class TreeOptimizer(torch.optim.Optimizer):
     def __init__(self, spec: "OptimizerSpec", trainable: Dict[str, Any]):
         self.spec = spec
         self.tree = trainable
-        flat = flatten_with_paths(trainable)
+        flat = leaves_with_path(trainable)
         leaves = [leaf for _, leaf in flat]
         super().__init__(leaves, {})
         self.leaves = leaves
@@ -277,7 +255,7 @@ def state_from_optax(opt: TreeOptimizer, count, mu: Dict[str, Any], nu: Dict[str
     and ``nu`` is empty."""
     opt.count = int(np.asarray(count))
     for dst_list, tree in ((opt.mu, mu), (opt.nu, nu)):
-        for dst, (_, src) in zip(dst_list, flatten_with_paths(tree)):
+        for dst, (_, src) in zip(dst_list, leaves_with_path(tree)):
             dst.copy_(torch.tensor(np.asarray(src)))
 
 
@@ -285,7 +263,7 @@ def state_to_optax(opt: TreeOptimizer):
     """``(count, mu, nu)`` of ``opt`` as numpy, trees shaped like the
     trainable tree (``nu`` empty for sgd and lars): the inverse of
     :func:`state_from_optax`."""
-    to_tree = lambda leaves: _unflatten_like(opt.tree, [_to_host(t) for t in leaves])
+    to_tree = lambda leaves: unflatten_like(opt.tree, [_to_host(t) for t in leaves])
     return np.int32(opt.count), to_tree(opt.mu), to_tree(opt.nu) if opt.nu else {}
 
 

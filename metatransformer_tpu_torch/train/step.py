@@ -16,6 +16,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
+from metatransformer_tpu_torch.core.tree import leaves, unflatten_like
 from metatransformer_tpu_torch.train import losses
 from metatransformer_tpu_torch.train.optim import TreeOptimizer
 
@@ -56,19 +57,19 @@ def _accuracy(logits, label) -> torch.Tensor:
 
 
 def _to_micro(batch: Any, accum_steps: int) -> List[Any]:
-    """The batch as ``accum_steps`` micro-batches: every leaf of the nested
-    dicts split along axis 0 (``None`` leaves stay ``None``), as the
-    reference maps over the whole batch pytree."""
-    if isinstance(batch, dict):
-        parts = {k: _to_micro(v, accum_steps) for k, v in batch.items()}
-        return [{k: p[i] for k, p in parts.items()} for i in range(accum_steps)]
-    if batch is None:
-        return [None] * accum_steps
-    if batch.dim() == 0 or batch.shape[0] % accum_steps:
-        raise ValueError(
-            f"batch axis {tuple(batch.shape)} not divisible by accum_steps={accum_steps}"
-        )
-    return list(batch.reshape((accum_steps, -1) + tuple(batch.shape[1:])).unbind(0))
+    """The batch as ``accum_steps`` micro-batches: every leaf of the tree
+    split along axis 0 (``None`` leaves stay ``None``), as the reference
+    maps over the whole batch pytree."""
+
+    def split(t):
+        if t.dim() == 0 or t.shape[0] % accum_steps:
+            raise ValueError(
+                f"batch axis {tuple(t.shape)} not divisible by accum_steps={accum_steps}"
+            )
+        return t.reshape((accum_steps, -1) + tuple(t.shape[1:])).unbind(0)
+
+    parts = [split(t) for t in leaves(batch)]
+    return [unflatten_like(batch, [p[i] for p in parts]) for i in range(accum_steps)]
 
 
 def make_train_step(

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from metatransformer_tpu_torch.core import device as _device
+from metatransformer_tpu_torch.core.tree import tree_map
 from metatransformer_tpu_torch.train import ema as ema_lib
 from metatransformer_tpu_torch.train import step as step_lib
 from metatransformer_tpu_torch.train.optim import OptimizerSpec
@@ -51,28 +52,30 @@ class TrainerConfig:
 
 
 def batch_to_device(tree: Any, device: torch.device) -> Any:
-    """A batch (nested dicts of numpy arrays or tensors, ``None`` leaves
-    kept) with every array leaf a tensor on ``device``. Copies run
+    """A batch (nested dicts and lists of numpy arrays or tensors, ``None``
+    leaves kept) with every array leaf a tensor on ``device``. Copies run
     asynchronously only from pinned host memory."""
-    if isinstance(tree, dict):
-        return {k: batch_to_device(v, device) for k, v in tree.items()}
-    if tree is None:
-        return None
-    t = torch.as_tensor(tree)
-    return t.to(device, non_blocking=t.is_pinned())
+
+    def leaf(a):
+        t = torch.as_tensor(a)
+        return t.to(device, non_blocking=t.is_pinned())
+
+    return tree_map(leaf, tree)
 
 
 def _to_device_tree(tree: Any, device: torch.device, trainable: bool) -> Any:
     """A copy of the tree on ``device``; floating leaves of a trainable tree
     become fp32-or-as-given leaf tensors that take a gradient."""
-    if isinstance(tree, dict):
-        return {k: _to_device_tree(v, device, trainable) for k, v in tree.items()}
-    t = torch.as_tensor(tree).detach().to(device)
-    if trainable:
-        t = t.clone()
-        if t.is_floating_point():
-            t.requires_grad_(True)
-    return t
+
+    def leaf(a):
+        t = torch.as_tensor(a).detach().to(device)
+        if trainable:
+            t = t.clone()
+            if t.is_floating_point():
+                t.requires_grad_(True)
+        return t
+
+    return tree_map(leaf, tree)
 
 
 class Trainer:
@@ -206,13 +209,9 @@ class Trainer:
         """Full resume: parameters, optimizer moments, EMA, global step
         (pcdet checkpoint_state / openpoints resume_checkpoint parity)."""
 
+        @torch.no_grad()
         def copy_into(dst, src):
-            if isinstance(dst, dict):
-                for k in dst:
-                    copy_into(dst[k], src[k])
-            else:
-                with torch.no_grad():
-                    dst.copy_(src)
+            tree_map(lambda d, s: d.copy_(s), dst, src)
 
         copy_into(self.trainable, state["trainable"])
         if "opt_state" in state:

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from metatransformer_tpu_torch.core import device as _device
+from metatransformer_tpu_torch.core.tree import leaves_with_path, tree_map
 
 
 def _leaf_to_numpy(leaf: Any) -> np.ndarray:
@@ -36,17 +37,9 @@ def _leaf_to_numpy(leaf: Any) -> np.ndarray:
     return np.asarray(leaf)
 
 
-def _flatten(tree: Any, prefix: str = "") -> Dict[str, np.ndarray]:
-    out = {}
-    if isinstance(tree, dict):
-        for k, v in tree.items():
-            out.update(_flatten(v, f"{prefix}{k}/"))
-    elif isinstance(tree, (list, tuple)):
-        for i, v in enumerate(tree):
-            out.update(_flatten(v, f"{prefix}{i}/"))
-    else:
-        out[prefix[:-1]] = _leaf_to_numpy(tree)
-    return out
+def _flatten(tree: Any) -> Dict[str, np.ndarray]:
+    return {"/".join(map(str, path)): _leaf_to_numpy(leaf)
+            for path, leaf in leaves_with_path(tree)}
 
 
 def _unflatten(flat: Dict[str, Any]) -> Any:
@@ -72,11 +65,7 @@ def _unflatten(flat: Dict[str, Any]) -> Any:
 def _host_snapshot(state: Any) -> Any:
     """The tree with every tensor copied to host numpy (a consistent
     snapshot: later in-place updates of the tensors do not reach it)."""
-    if isinstance(state, dict):
-        return {k: _host_snapshot(v) for k, v in state.items()}
-    if isinstance(state, (list, tuple)):
-        return [_host_snapshot(v) for v in state]
-    return np.array(_leaf_to_numpy(state))
+    return tree_map(lambda leaf: np.array(_leaf_to_numpy(leaf)), state)
 
 
 def save(path: str, state: Dict[str, Any]) -> None:
@@ -201,15 +190,6 @@ class GracefulPreemption:
         self._prev.clear()
 
 
-def _map_trees(fn, *trees):
-    first = trees[0]
-    if isinstance(first, dict):
-        return {k: _map_trees(fn, *(t[k] for t in trees)) for k in first}
-    if isinstance(first, (list, tuple)):
-        return [_map_trees(fn, *items) for items in zip(*trees)]
-    return fn(*trees)
-
-
 def average_checkpoints(paths, device: _device.Device = None) -> Dict[str, Any]:
     """Uniform parameter average over saved checkpoints (the AST weight-
     averaging eval and fairseq's average_checkpoints). Float leaves are
@@ -225,7 +205,7 @@ def average_checkpoints(paths, device: _device.Device = None) -> Dict[str, Any]:
             return leaves[-1]
         return torch.stack(leaves).mean(dim=0)
 
-    return _map_trees(avg, *states)
+    return tree_map(avg, *states)
 
 
 def average_epoch_range(

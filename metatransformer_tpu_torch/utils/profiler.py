@@ -19,19 +19,13 @@ from typing import Any, Callable, Dict, Optional
 
 import torch
 
+from metatransformer_tpu_torch.core.tree import leaves, tree_map
+
 COST_ANALYSIS_ITEM = "ROADMAP.md queue 1, item 10 (a FLOP count of the port's programs)"
 
 
-def _leaves(tree: Any):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    elif tree is not None:
-        yield tree
-
-
 def count_params(params: Any) -> int:
-    return int(sum(int(torch.as_tensor(x).numel()) for x in _leaves(params)))
+    return int(sum(int(torch.as_tensor(x).numel()) for x in leaves(params)))
 
 
 def cost_analysis(fn: Callable, *args) -> Dict[str, float]:
@@ -41,15 +35,12 @@ def cost_analysis(fn: Callable, *args) -> Dict[str, float]:
 
 def _scale(tree: Any, factor: torch.Tensor) -> Any:
     """Every floating leaf times ``factor`` (integer leaves as they are)."""
-    if isinstance(tree, dict):
-        return {k: _scale(v, factor) for k, v in tree.items()}
-    if isinstance(tree, torch.Tensor) and tree.is_floating_point():
-        return tree * factor.to(tree.dtype)
-    return tree
+    return tree_map(lambda t: t * factor.to(t.dtype)
+                    if isinstance(t, torch.Tensor) and t.is_floating_point() else t, tree)
 
 
 def _device_of(tree: Any) -> torch.device:
-    for leaf in _leaves(tree):
+    for leaf in leaves(tree):
         if isinstance(leaf, torch.Tensor):
             return leaf.device
     return torch.device("cpu")

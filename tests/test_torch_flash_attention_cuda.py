@@ -140,6 +140,8 @@ FORWARD_CASES = [
     (2, 257, 4, 64, False), (2, 257, 4, 64, True),
     # Data2Seq: audio, the fused trio, the ragged 3072 bucket
     (8, 1212, 12, 64, False), (8, 2876, 12, 64, False), (4, 3072, 12, 64, True),
+    # the ViT-Adapter's 32 x 32 grid, TTA's 24 x 24 and 40 x 40
+    (2, 1024, 12, 64, False), (1, 576, 12, 64, False), (1, 1600, 12, 64, False),
 ]
 
 

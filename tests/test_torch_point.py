@@ -28,6 +28,7 @@ from metatransformer_tpu.tokenizers import point as jtok
 from metatransformer_tpu.train import optim as joptim
 from metatransformer_tpu.train import step as jstep
 from metatransformer_tpu_torch.core import convert, encoder as enc
+from metatransformer_tpu_torch.core.tree import leaves_with_path
 from metatransformer_tpu_torch.models import point_classifier as pc
 from metatransformer_tpu_torch.models import point_mae as mae
 from metatransformer_tpu_torch.models import point_segmenter as ps
@@ -134,22 +135,22 @@ def test_tokenizer_matmul_precision_highest_and_default():
     pts = torch.tensor(_cloud(4, 2))
     x, w = torch.tensor(_cloud(5, 3, 16, 24)), params["w1"][:24]
     b = torch.tensor(_cloud(6, 1, 1, DIM)[0, 0])
-    torch.testing.assert_close(tok._linear(x, w, b, "highest"), x @ w + b, atol=1e-5, rtol=0)
+    torch.testing.assert_close(enc.linear_at(x, w, b, "highest"), x @ w + b, atol=1e-5, rtol=0)
     r = lambda t: t.bfloat16().float()
     want = r(x) @ r(w) + b
-    got = tok._linear(x, w, b, "default")
+    got = enc.linear_at(x, w, b, "default")
     # fp32 sums of the same bf16 products: only the order of summation differs
     torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
     assert got.dtype == torch.float32 and got.shape == (3, 16, DIM)
     assert not torch.equal(got, r(got))  # the result keeps its fp32 bits
     xg, wg = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
     cot = torch.tensor(_cloud(7, 3, 16, DIM))
-    tok._linear(xg, wg, b, "default").backward(cot)
+    enc.linear_at(xg, wg, b, "default").backward(cot)
     torch.testing.assert_close(xg.grad, r(cot) @ r(w).t(), atol=1e-4, rtol=0)
     torch.testing.assert_close(
         wg.grad, r(x).reshape(-1, 24).t() @ r(cot).reshape(-1, DIM), atol=1e-4, rtol=0)
     with pytest.raises(ValueError):
-        tok._linear(x, w, b, "tf32")
+        enc.linear_at(x, w, b, "tf32")
     _, hi = tok.apply(params, pts, cfg)
     _, hi2 = tok.apply(params, pts, cfg, mm="highest")
     _, lo = tok.apply(params, pts, cfg, mm="default")
@@ -268,8 +269,8 @@ def test_convert_round_trips_the_nested_point_trees():
     assert set(tree["pos_mlp"]) == {"w1", "b1", "w2", "b2"}
     assert tree["decoder_embed"]["w"].requires_grad and tree["tokenizer"]["w0"].is_leaf
     back = convert.to_numpy(tree)
-    flat, flat_back = dict(optim.flatten_with_paths(np_params)), dict(
-        optim.flatten_with_paths(back))
+    flat, flat_back = dict(leaves_with_path(np_params)), dict(
+        leaves_with_path(back))
     assert set(flat) == set(flat_back)
     for path, leaf in flat.items():
         np.testing.assert_array_equal(flat_back[path], leaf)
@@ -354,7 +355,7 @@ def test_point_mae_loss_matches_jax_with_shared_shuffle():
     np.testing.assert_allclose(loss.item(), float(want), rtol=1e-4)
     np.testing.assert_allclose(pred.detach().numpy(), np.asarray(want_pred), atol=FP32_ATOL)
     loss.backward()  # every leaf takes a gradient
-    for path, leaf in optim.flatten_with_paths(params):
+    for path, leaf in leaves_with_path(params):
         assert leaf.grad is not None and torch.isfinite(leaf.grad).all(), path
     # drawing from a generator gives a loss of the same kind, repeatably
     with torch.no_grad():
@@ -424,8 +425,8 @@ def test_point_train_step_fp32_matches_jax_step(track):
         track, jenc.FP32, enc.FP32, joptim.make_optimizer("sgd", lr=0.1),
         optim.make_optimizer("sgd", lr=0.1), 1)
     assert abs(losses[0][0] - losses[0][1]) <= 1e-4
-    got = dict(optim.flatten_with_paths(tr))
-    want = dict(optim.flatten_with_paths(jtr))
+    got = dict(leaves_with_path(tr))
+    want = dict(leaves_with_path(jtr))
     assert set(got) == set(want)
     assert (("encoder", "qkv_w") in got) == (track == "full")
     for name in ("cls_token", "cls_pos", "posmlp_w0", "norm_scale"):

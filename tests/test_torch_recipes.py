@@ -6,10 +6,11 @@ ported recipe YAML at --smoke geometry on the CPU:
 - with the JAX parameters carried across, ``forward`` on the same batch
   matches at the BF16 drift bound of tests/test_torch_pipeline.py (atol
   0.15, rtol 0.1); the two MAE losses (FP32) at 1e-4, with the reference's
-  random draws passed in; the graph recipe in eval mode (no generator);
+  random draws passed in (the Mask2Former losses on them too); the graph
+  recipe in eval mode (no generator);
 - ``loss_fn`` matches at 1e-5 on fixed arrays.
 
-The 30 YAMLs of families the port does not have raise NotImplementedError
+The 27 YAMLs of families the port does not have raise NotImplementedError
 naming their ROADMAP item.
 """
 
@@ -24,18 +25,23 @@ import torch
 
 from metatransformer_tpu import recipes as jrecipes
 from metatransformer_tpu.configs import load_config as jload_config
+from metatransformer_tpu.heads import mask2former as jm2f
 from metatransformer_tpu.models import video_pretrain as jvp
 from metatransformer_tpu.train import step as jstep
 from metatransformer_tpu_torch import recipes
 from metatransformer_tpu_torch.configs import CONFIG_DIR, load_config
 from metatransformer_tpu_torch.core import convert
+from metatransformer_tpu_torch.core.tree import leaves_with_path
+from metatransformer_tpu_torch.heads import mask2former as m2f
 from metatransformer_tpu_torch.models import point_mae, video_pretrain
 from metatransformer_tpu_torch.train import step as step_lib
+from tests.test_torch_mask2former import jax_loss_draws
 
 torch.set_num_threads(1)
 
 PORTED = [
-    "adult_tabtransformer.yaml", "bankm_tabtransformer.yaml", "etth1_metatransformer.yaml",
+    "ade20k_mask2former_metatransformer.yaml", "ade20k_upernet_metatransformer.yaml",
+    "coco_mask2former_metatransformer.yaml", "adult_tabtransformer.yaml", "bankm_tabtransformer.yaml", "etth1_metatransformer.yaml",
     "ettm1_imputation_metatransformer.yaml", "imagenet_large_metatransformer.yaml",
     "imagenet_metatransformer.yaml", "indianpines_caf_metatransformer.yaml",
     "indianpines_hyper_metatransformer.yaml", "kinetics400_metatransformer.yaml",
@@ -52,9 +58,8 @@ PORTED = [
 UNPORTED = {
     "imagenet_moe_metatransformer.yaml": "item 8",
     **{name: "item 9" for name in (
-        "ade20k_mask2former_metatransformer.yaml", "ade20k_upernet_metatransformer.yaml",
         "coco_cascade_rcnn_metatransformer.yaml", "coco_htcpp_metatransformer.yaml",
-        "coco_mask2former_metatransformer.yaml", "coco_mask_rcnn_metatransformer.yaml",
+        "coco_mask_rcnn_metatransformer.yaml",
         "coco_upgraded_mask_rcnn_metatransformer.yaml", "kitti_caddn.yaml",
         "kitti_centerpoint.yaml", "kitti_iassd.yaml", "kitti_part_a2.yaml",
         "kitti_point_rcnn.yaml", "kitti_pointpillars.yaml", "kitti_pv_rcnn.yaml",
@@ -66,6 +71,7 @@ UNPORTED = {
     )},
 }
 MAE = ("kinetics400_videomae_pretrain.yaml", "modelnet40_pointmae_pretrain.yaml")
+MASK2FORMER = ("ade20k_mask2former_metatransformer.yaml", "coco_mask2former_metatransformer.yaml")
 GRAPH = ("pcqm4mv2_tokengt.yaml", "pcqm4mv2_tokengt_performer.yaml")
 BATCH = 2
 KEY = jax.random.PRNGKey(7)
@@ -88,15 +94,6 @@ def _batches(rec, n=2, seed=3):
     return list(rec.synth(BATCH, n, seed))
 
 
-def _leaves(tree, prefix=()):
-    if isinstance(tree, dict):
-        out = []
-        for k in sorted(tree):
-            out += _leaves(tree[k], prefix + (k,))
-        return out
-    return [(prefix, tree)]
-
-
 def _np(tree):
     return jax.tree.map(np.asarray, tree)
 
@@ -105,7 +102,7 @@ def test_the_ported_list_is_exact():
     """Every shipped recipe is either ported or named unported: exact
     counts, so a new YAML or a newly ported family shows here."""
     every = sorted(n for n in os.listdir(CONFIG_DIR) if n.endswith(".yaml") and n != "default.yaml")
-    assert len(PORTED) == 25 and len(UNPORTED) == 30
+    assert len(PORTED) == 28 and len(UNPORTED) == 27
     assert sorted(PORTED + list(UNPORTED)) == every
 
 
@@ -115,11 +112,11 @@ def test_synth_is_bit_equal_to_jax(name):
     got, want = _batches(rec, 2), list(jrec.synth(BATCH, 2, 3))
     assert len(got) == len(want) == 2
     for g, w in zip(got, want):
-        g_leaves, w_leaves = _leaves(g), _leaves(_np(w))
+        g_leaves, w_leaves = leaves_with_path(g), leaves_with_path(_np(w))
         assert [p for p, _ in g_leaves] == [p for p, _ in w_leaves]
         for (path, a), (_, b) in zip(g_leaves, w_leaves):
             assert isinstance(a, np.ndarray), path
-            np.testing.assert_array_equal(a, b, err_msg="/".join(path))
+            np.testing.assert_array_equal(a, b, err_msg="/".join(map(str, path)))
             if path[0] in ("label", "cls") and np.issubdtype(a.dtype, np.integer):
                 assert a.dtype == np.int64, path
             else:
@@ -129,7 +126,7 @@ def test_synth_is_bit_equal_to_jax(name):
 @pytest.mark.parametrize("name", PORTED)
 def test_parameter_trees_have_the_same_keys_and_shapes(name):
     jrec, rec = _pair(name)
-    got, want = _leaves(rec.params), _leaves(_np(jrec.params))
+    got, want = leaves_with_path(rec.params), leaves_with_path(_np(jrec.params))
     assert [p for p, _ in got] == [p for p, _ in want]
     for (path, a), (_, b) in zip(got, want):
         assert tuple(a.shape) == tuple(b.shape), path
@@ -153,6 +150,8 @@ def _forward_both(name, monkeypatch):
             want = jrec.forward(jax.tree.map(jnp.asarray, np_params), jx, key)
         vis, msk = (torch.tensor(np.asarray(a)).long() for a in drawn[0])
         monkeypatch.setattr(video_pretrain, "tube_mask", lambda *a, **k: (vis, msk))
+    elif name in MASK2FORMER:  # jitted: its eager loss takes half a minute here
+        want = jax.jit(jrec.forward)(jax.tree.map(jnp.asarray, np_params), jx, key)
     else:
         want = jrec.forward(jax.tree.map(jnp.asarray, np_params), jx, key)
     if name == MAE[1]:
@@ -163,6 +162,10 @@ def _forward_both(name, monkeypatch):
             return point_mae.forward_at(params, points, torch.tensor(shuffle).long(), cfg)
 
         monkeypatch.setattr(point_mae, "forward", forward)
+    if name in MASK2FORMER:  # JAX's loss points, from its key (2 layers, 3 gts, 64 points)
+        draws = jax_loss_draws(KEY, 2, BATCH, 3, 64, jm2f.Mask2FormerConfig())
+        loss = m2f.loss
+        monkeypatch.setattr(m2f, "loss", lambda *a, **k: loss(*a, **k, draws=draws))
     with torch.no_grad():
         got = rec.forward(convert.from_numpy(np_params, "cpu"), batch["input"],
                           None if name in GRAPH else torch.Generator().manual_seed(0))

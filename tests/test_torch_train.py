@@ -22,6 +22,7 @@ from metatransformer_tpu.train import optim as joptim
 from metatransformer_tpu.train import schedules as jsched
 from metatransformer_tpu.train import step as jstep
 from metatransformer_tpu_torch.core import convert, encoder as enc
+from metatransformer_tpu_torch.core.tree import leaves_with_path
 from metatransformer_tpu_torch.models import image_classifier as ic
 from metatransformer_tpu_torch.tokenizers import image as tok
 from metatransformer_tpu_torch.train import losses, optim, schedules
@@ -165,11 +166,11 @@ def test_optimizer_matches_optax(name, grad_clip, layer_decay):
         grads = _opt_tree(100 + step)
         updates, state = update(jax.tree.map(jnp.asarray, grads), state, jparams)
         jparams = optax.apply_updates(jparams, updates)
-        for (_, p), (_, g) in zip(optim.flatten_with_paths(params), optim.flatten_with_paths(grads)):
+        for (_, p), (_, g) in zip(leaves_with_path(params), leaves_with_path(grads)):
             p.grad = torch.tensor(g)
         opt.step()
     for (path, p), (_, want) in zip(
-        optim.flatten_with_paths(params), optim.flatten_with_paths(jax.tree.map(np.asarray, jparams))
+        leaves_with_path(params), leaves_with_path(jax.tree.map(np.asarray, jparams))
     ):
         np.testing.assert_allclose(
             p.detach().numpy(), want, rtol=1e-5, atol=1e-6, err_msg="/".join(path)
@@ -226,11 +227,11 @@ def test_optimizer_state_crosses_packages(name):
     for step in range(3):
         optax_step(500 + step)
         grads = _opt_tree(500 + step)
-        for (_, p), (_, g) in zip(optim.flatten_with_paths(params), optim.flatten_with_paths(grads)):
+        for (_, p), (_, g) in zip(leaves_with_path(params), leaves_with_path(grads)):
             p.grad = torch.tensor(g)
         opt.step()
     for (path, p), (_, want) in zip(
-        optim.flatten_with_paths(params), optim.flatten_with_paths(jax.tree.map(np.asarray, jparams))
+        leaves_with_path(params), leaves_with_path(jax.tree.map(np.asarray, jparams))
     ):
         np.testing.assert_allclose(
             p.detach().numpy(), want, rtol=1e-5, atol=1e-5, err_msg="/".join(path))
@@ -239,7 +240,7 @@ def test_optimizer_state_crosses_packages(name):
     if name != "lars":
         assert int(got_count) == int(count) == 11
     for got, want in ((got_mu, mu), (got_nu, nu)):
-        for (path, a), (_, b) in zip(optim.flatten_with_paths(got), optim.flatten_with_paths(
+        for (path, a), (_, b) in zip(leaves_with_path(got), leaves_with_path(
                 jax.tree.map(np.asarray, want))):
             np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-5, err_msg="/".join(path))
 
@@ -289,11 +290,11 @@ def test_adamw_state_crosses_packages_mid_training():
     grads = _opt_tree(300)
     updates, state = tx.update(jax.tree.map(jnp.asarray, grads), state, jparams)
     jparams = optax.apply_updates(jparams, updates)
-    for (_, p), (_, g) in zip(optim.flatten_with_paths(params), optim.flatten_with_paths(grads)):
+    for (_, p), (_, g) in zip(leaves_with_path(params), leaves_with_path(grads)):
         p.grad = torch.tensor(g)
     opt.step()
     for (path, p), (_, want) in zip(
-        optim.flatten_with_paths(params), optim.flatten_with_paths(jax.tree.map(np.asarray, jparams))
+        leaves_with_path(params), leaves_with_path(jax.tree.map(np.asarray, jparams))
     ):
         np.testing.assert_allclose(p.detach().numpy(), want, rtol=1e-5, atol=1e-6)
 
@@ -425,7 +426,7 @@ def test_accumulation_equals_one_step_on_the_same_batch():
     p4, m4 = _one_step(4, batch)
     np.testing.assert_allclose(m4["loss"].item(), m1["loss"].item(), atol=1e-5)
     np.testing.assert_allclose(m4["acc"].item(), m1["acc"].item(), atol=1e-5)
-    for (path, a), (_, b) in zip(optim.flatten_with_paths(p1), optim.flatten_with_paths(p4)):
+    for (path, a), (_, b) in zip(leaves_with_path(p1), leaves_with_path(p4)):
         np.testing.assert_allclose(
             a.detach().numpy(), b.detach().numpy(), atol=1e-5, err_msg="/".join(path)
         )
@@ -504,7 +505,7 @@ def test_image_forward_is_differentiable_in_every_leaf_and_the_image():
         num_classes=NCLS,
     )
     params = ic.init(cfg, torch.Generator().manual_seed(0), device="cpu")
-    leaves = optim.flatten_with_paths(params)
+    leaves = leaves_with_path(params)
     for _, leaf in leaves:
         leaf.requires_grad_(True)
     images = torch.randn(2, IMG, IMG, 3, generator=torch.Generator().manual_seed(1))

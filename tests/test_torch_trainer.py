@@ -18,6 +18,7 @@ from metatransformer_tpu.train import optim as joptim
 from metatransformer_tpu.train import trainer as jtrainer
 from metatransformer_tpu.utils import checkpoint as jckpt
 from metatransformer_tpu_torch.core import encoder as enc
+from metatransformer_tpu_torch.core.tree import leaves_with_path
 from metatransformer_tpu_torch.models import image_classifier as ic
 from metatransformer_tpu_torch.tokenizers import image as tok
 from metatransformer_tpu_torch.train import ema, optim
@@ -82,7 +83,7 @@ def test_trainer_fits_tiny_problem_and_resumes(tmp_path):
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
     for tree, tree2 in ((trainer.trainable, trainer2.trainable),
                         (trainer.ema_params, trainer2.ema_params)):
-        for (_, a), (_, b) in zip(optim.flatten_with_paths(tree), optim.flatten_with_paths(tree2)):
+        for (_, a), (_, b) in zip(leaves_with_path(tree), leaves_with_path(tree2)):
             assert torch.equal(a.detach(), b.detach())
 
 
@@ -237,7 +238,7 @@ def test_ema_after_three_updates_matches_jax():
     for i in range(3):
         step = jax.tree.map(lambda a: a + 0.1 * (i + 1), p0)
         with torch.no_grad():
-            for _, v in optim.flatten_with_paths(params):
+            for _, v in leaves_with_path(params):
                 v.add_(0.1)  # params = p0 + 0.1 * (i + 1)
         ema.update(e, params, decay=0.9)
         je = jema.update(je, jax.tree.map(jnp.asarray, step), decay=0.9)
@@ -325,8 +326,8 @@ def test_dict_batch_trainer_step_accumulates_and_matches_jax():
     one, two = _dict_trainer(np_params, 1), _dict_trainer(np_params, 2)
     s1, s2 = one.train_epoch([batch]), two.train_epoch([batch])
     np.testing.assert_allclose(s2["loss"], s1["loss"], rtol=1e-6)
-    flat1 = optim.flatten_with_paths(one.trainable)
-    flat2 = optim.flatten_with_paths(two.trainable)
+    flat1 = leaves_with_path(one.trainable)
+    flat2 = leaves_with_path(two.trainable)
     for (path, a), (_, b) in zip(flat1, flat2):
         np.testing.assert_allclose(b.grad.numpy(), a.grad.numpy(), rtol=1e-6, atol=1e-6,
                                    err_msg="/".join(path))
@@ -340,8 +341,8 @@ def test_dict_batch_trainer_step_accumulates_and_matches_jax():
         step = jax.jit(jstep.make_train_step(_jtab_forward, tx, accum_steps=accum))
         new, _, metrics = step(jparams, {}, tx.init(jparams), jbatch, jax.random.PRNGKey(0))
         np.testing.assert_allclose(s1["loss"], float(metrics["loss"]), rtol=1e-5)
-        for (path, p), (_, want) in zip(optim.flatten_with_paths(trainer.trainable),
-                                        optim.flatten_with_paths(jax.tree.map(np.asarray, new))):
+        for (path, p), (_, want) in zip(leaves_with_path(trainer.trainable),
+                                        leaves_with_path(jax.tree.map(np.asarray, new))):
             np.testing.assert_allclose(p.detach().numpy(), want, rtol=1e-5, atol=1e-5,
                                        err_msg=f"accum {accum}: " + "/".join(path))
     # the validation pass takes the dict input too

@@ -25,6 +25,7 @@ from metatransformer_tpu.tokenizers import video as jtok
 from metatransformer_tpu.train import optim as joptim
 from metatransformer_tpu.train import step as jstep
 from metatransformer_tpu_torch.core import convert, encoder as enc
+from metatransformer_tpu_torch.core.tree import leaves_with_path
 from metatransformer_tpu_torch.models import video_classifier as vc
 from metatransformer_tpu_torch.models import video_eval as ve
 from metatransformer_tpu_torch.models import video_pretrain as vp
@@ -294,8 +295,8 @@ def test_video_train_step_fp32_matches_jax_step(track):
         track, jenc.FP32, enc.FP32, joptim.make_optimizer("sgd", lr=0.1),
         optim.make_optimizer("sgd", lr=0.1), 1)
     assert abs(losses[0][0] - losses[0][1]) <= 1e-4
-    got = dict(optim.flatten_with_paths(tr))
-    want = dict(optim.flatten_with_paths(jtr))
+    got = dict(leaves_with_path(tr))
+    want = dict(leaves_with_path(jtr))
     assert set(got) == set(want)
     assert (("encoder", "qkv_w") in got) == (track == "full")
     for path, leaf in got.items():
@@ -375,7 +376,7 @@ def test_video_mae_loss_matches_jax_with_shared_indices():
     np.testing.assert_allclose(
         got_aux["pred"].detach().numpy(), np.asarray(aux["pred"]), atol=1e-4)
     loss.backward()  # every leaf takes a gradient, through flash in the decoder
-    for path, leaf in optim.flatten_with_paths(params):
+    for path, leaf in leaves_with_path(params):
         assert leaf.grad is not None and torch.isfinite(leaf.grad).all(), path
     # drawing from a generator gives a loss of the same kind
     drawn, _ = vp.forward_loss(params, torch.tensor(clips), torch.Generator().manual_seed(0), cfg)
