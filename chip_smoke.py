@@ -9,7 +9,8 @@ bucket ladder and the audio, hyper-spectral, tabular and time-series models
 (served), the serving edge (``serving.Dispatcher``, ``ServingDaemon``, byte
 payloads), the graph predictor, the demo CLI, the dense-prediction family
 (ViT-Adapter with UperNet, test-time augmentation, windowed blocks and
-Mask2Former at 512^2) and every ported training recipe through
+Mask2Former at 512^2), 2D detection (Mask R-CNN, Cascade R-CNN and HTC++
+over the ViT-Adapter at 1024^2) and every ported training recipe through
 ``train_cli`` on one NVIDIA GPU through the hand-written kernels.
 
     python3 chip_smoke.py [--seed N] [--profile]
@@ -19,6 +20,7 @@ Mask2Former at 512^2) and every ported training recipe through
     python3 chip_smoke.py --serving        # only the serving edge, the graph predictor, the demo
     python3 chip_smoke.py --recipes        # only every ported recipe YAML through train_cli
     python3 chip_smoke.py --dense          # only phase_dense and the dense recipes' holds and steps
+    python3 chip_smoke.py --detection      # only phase_detection and the COCO recipes' holds and steps
 
 Phases (any failed check raises, so the process exits non-zero):
 
@@ -126,25 +128,40 @@ Phases (any failed check raises, so the process exits non-zero):
     bicubic resizes (forward and backward) against the CPU; the three
     forwards timed at b = 2 (``--profile``: by kernel, and the share of the
     UperNet forward outside the 12 ViT blocks);
-13b. the training entry point: ``train_cli.main`` as a user runs it (no
-    ``--device``, no ``--smoke``: the card, full width) on each of the 28
+13b. 2D detection at the COCO YAMLs' full width (ViT-B16 adapter, 1024^2,
+    T = 4096, 80 classes, BF16): the backbone, FPN and RPN at b = 1 and 2
+    (every FPN map and RPN output held), ``forward_test`` of Mask R-CNN,
+    Cascade R-CNN and HTC++ at b = 1 and 2 (12 flash forwards a request and
+    no other launch; boxes, scores, labels, masks and HTC++'s semantic
+    logits against the plain versions, with the top-k, NMS keeps, RoI
+    levels and top classes recorded from the plain run and replayed), one
+    backward of the Mask R-CNN loss at b = 2 (12 launches each of #4-#6,
+    its assignments replayed too; peak memory), ``large_scale_jitter`` on
+    the card against the CPU at scales 0.3, 0.8, 1.7; the three forwards
+    and the NMS loop timed at b = 2, median of 10 (``--profile``: by
+    kernel, the idle share, the NMS loop's kernels and the share outside
+    the 12 ViT blocks);
+13c. the training entry point: ``train_cli.main`` as a user runs it (no
+    ``--device``, no ``--smoke``: the card, full width) on each of the 32
     ported recipe YAMLs of ``metatransformer_tpu/configs/``, 1 epoch of 2
     steps at ``train.batch_size=min(yaml, 8)`` (modelnet40 at its own 32,
-    the three dense recipes at 2; ViT-B16); each recipe's launches counted
-    under ``recipes_<stem>`` and held to the kernels its T resolves to, a
-    finite final loss, its step timed as ``train_cli.setup`` builds it
-    (median of 20, batch on the card); ``--eval`` and ``--eval-all`` on modelnet40's work dir,
+    the three dense and the four COCO detection recipes at 2; ViT-B16);
+    each recipe's launches counted under ``recipes_<stem>`` and held to the
+    kernels its T resolves to, a finite final loss, its step timed as
+    ``train_cli.setup`` builds it (median of 20, the detection recipes of
+    10, batch on the card); ``--eval`` and ``--eval-all`` on modelnet40's work dir,
     ``--data`` on a JPEG tree the phase writes for imagenet; the shape of
     every kernel call of these runs recorded, and each kernel held against
     its plain version at each of those shapes (T = 9 ... 2876, ViT-L14's
     widths, the fp32 route, FPS over 1024 ... 8192 points) at the bounds of
     phases 3, 9 and 10; modelnet40 and s3dis (4096 points, T = 1025, the
     segmenter's first training on the card) held against two steps on the
-    plain versions at the point bounds, and so are ade20k_upernet and
+    plain versions at the point bounds, and so are ade20k_upernet,
     ade20k_mask2former (Mask2Former's attention masks, assignments and loss
     points recorded from the plain run and replayed; then both runs again
     with the head's products at full precision, losses within the plain
-    bound); the bare
+    bound), coco_mask_rcnn and coco_htcpp (proposals, RoI levels and
+    assignments replayed); the bare
     point-classifier step timed beside the flagship's;
 14. the host: the C++ host runtime (grid subsampling, kNN) against its
     numpy twins, and host-to-device copy times of an image and a cloud
@@ -1099,19 +1116,20 @@ def phase_times(model, seed: int, dev) -> dict:
 
 
 def _time_step(label, trainer, batch, unit, generator=None, profile_as=None, size=None,
-               top: int = 28) -> float:
+               top: int = 28, reps: int = TIMING_REPS) -> float:
     """Time one optimizer step of ``trainer`` on ``batch`` (moved to the card
-    once), with its peak memory, and return the ms; ``profile_as`` also
-    prints its device time by kernel under that name (the ``top`` kernels).
-    ``size``: the batch's samples, where its input is not one tensor."""
+    once), with its peak memory, and return the ms (median of ``reps``);
+    ``profile_as`` also prints its device time by kernel under that name
+    (the ``top`` kernels). ``size``: the batch's samples, where its input is
+    not one tensor."""
     on_card = trainer._to_device(batch)
     size = size or len(on_card["input"])
     step = lambda: trainer._step(trainer.trainable, trainer.frozen, on_card, generator)
     torch.cuda.reset_peak_memory_stats()
-    ms = _median_ms(step)
+    ms = _median_ms(step, reps)
     peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"{label} b={size}: {ms:.4f} ms, {size * 1000.0 / ms:.2f} {unit}/s, peak memory "
-          f"{peak:.3f} GiB (median of {TIMING_REPS} optimizer steps, batch on the card)",
+          f"{peak:.3f} GiB (median of {reps} optimizer steps, batch on the card)",
           flush=True)
     if profile_as:
         _profile_step(step, profile_as, top=top)
@@ -1144,8 +1162,8 @@ def _profile_step(step, what: str = "full-track step", steps: int = 3, top: int 
             for e in prof.key_averages() if e.device_time_total > 0]
     busy = sum(r[1] for r in rows)
     print(f"profile, {what}: wall {wall_us:.1f} us/step under the profiler, "
-          f"device busy {busy:.1f} us/step, idle share {100 * (1 - busy / wall_us):.2f}%",
-          flush=True)
+          f"device busy {busy:.1f} us/step, idle share {100 * (1 - busy / wall_us):.2f}%, "
+          f"{sum(r[2] for r in rows):.1f} device operations/step", flush=True)
     for key, us, count in sorted(rows, key=lambda r: -r[1])[:top]:
         print(f"  {us:10.1f} us  {100 * us / busy:6.2f}%  x{count:6.1f}  {key[:110]}",
               flush=True)
@@ -1180,6 +1198,8 @@ FLASH_CASES = [  # b, h, t, head_dim, dtype, mask: False (dense), True (ragged) 
     (4, 12, 1600, 64, BF, True), (4, 12, 3072, 64, BF, True),
     # the ViT-Adapter's 32 x 32 grid at b = 2, TTA's 24 x 24 and 40 x 40
     (2, 12, 1024, 64, BF, False), (1, 12, 576, 64, BF, False), (1, 12, 1600, 64, BF, False),
+    # the detectors' 64 x 64 grid at 1024^2
+    (1, 12, 4096, 64, BF, False), (2, 12, 4096, 64, BF, False),
 ]
 
 
@@ -1554,12 +1574,15 @@ def phase_flash_times(seed: int, dev) -> dict:
     for the forward, autograd's backward through it for dq + dk/dv together
     (timed here, used nowhere in the port), beside which stands the port's
     whole backward (``_backward``: delta and both kernels). Also the b = 1
-    serving shape and the fp32 route at the video-MAE decoder's shape."""
+    serving shape, the fp32 route at the video-MAE decoder's shape and the
+    detectors' b = 2 at T = 4096 (with scaled_dot_product_attention's time
+    beside #4)."""
     from metatransformer_tpu_torch.ops import flash_attention as fa
 
     times = {}
-    for b, h, dtype in ((VIDEO_TRAIN_BATCH, HEADS, BF), (1, HEADS, BF), (MAE_BATCH, 6, F32)):
-        q, k, v, _, do = _flash_inputs(b, h, VT, HD, dtype, False, seed, dev)
+    for b, h, dtype, t in ((VIDEO_TRAIN_BATCH, HEADS, BF, VT), (1, HEADS, BF, VT),
+                           (MAE_BATCH, 6, F32, VT), (2, HEADS, BF, DET_T)):
+        q, k, v, _, do = _flash_inputs(b, h, t, HD, dtype, False, seed, dev)
         scale = float(HD) ** -0.5
         with torch.no_grad():
             o, lse = fa.flash_fwd_cuda(q, k, v, None, scale)
@@ -1572,12 +1595,21 @@ def phase_flash_times(seed: int, dev) -> dict:
             }
             ms = {name: _loop_ms(fn) for name, fn in calls.items()}
             single = {name: _median_ms(fn) for name, fn in calls.items()}
-        bounds = _flash_bounds(b, h, VT, HD, q.element_size(), False)
+        bounds = _flash_bounds(b, h, t, HD, q.element_size(), False)
         kind = str(dtype).split(".")[-1]
-        if (b, dtype) != (VIDEO_TRAIN_BATCH, BF):
+        if (b, dtype, t) != (VIDEO_TRAIN_BATCH, BF, VT):
+            if t == DET_T:
+                with torch.no_grad():
+                    lq, lk, lv = (a.transpose(1, 2) for a in (q, k, v))
+                    lib = _loop_ms(lambda: F.scaled_dot_product_attention(lq, lk, lv))
+                    plain = _median_ms(lambda: fa.flash_attention_plain(
+                        q.float(), k.float(), v.float(), None, scale), 5)
+                print(f"flash_fwd b={b} h={h} T={t} d={HD} {kind}: plain version {plain:.4f} ms "
+                      f"(median of 5), library scaled_dot_product_attention {lib:.4f} ms",
+                      flush=True)
             for name in FLASH_KERNELS:
                 bound = bounds[name]
-                print(f"{name} b={b} h={h} T={VT} d={HD} {kind}: kernel {ms[name]:.4f} ms by a "
+                print(f"{name} b={b} h={h} T={t} d={HD} {kind}: kernel {ms[name]:.4f} ms by a "
                       f"loop of {TIMING_REPS} launches (one timed call: {single[name]:.4f} ms), "
                       f"bound "
                       f"{bound['bound_ms']:.4f} ms by {bound['bound_by']} at the {kind} peak "
@@ -2452,13 +2484,17 @@ def _expected_launches(t: int, depth: int, fps: bool = False) -> dict:
     return counts
 
 
-def _held(what: str, fn, requests, expected: dict, shape, keep=None, pins=None) -> dict:
+def _held(what: str, fn, requests, expected: dict, shape, keep=None, pins=None,
+          tols=None) -> dict:
     """Answer each request with the kernels (launches of each held to
     ``expected``), then again with the plain versions on the card; outputs
     finite, of ``shape`` and within the serving tolerance (at the positions
     ``keep(request)`` names, where given). ``pins`` (a ``_Replayed``): the
     plain versions answer first under ``pins.record()`` and the kernels
-    under ``pins.replay()``. Returns the run's launches."""
+    under ``pins.replay()``. Where ``shape`` is a dict, ``fn`` answers a dict
+    of outputs, each held at its own shape and at ``tols[key]`` (atol,
+    rtol) where given, an atol that is a function taking it from the plain
+    run's output. Returns the run's launches."""
     import contextlib
 
     from metatransformer_tpu_torch import ops
@@ -2479,20 +2515,29 @@ def _held(what: str, fn, requests, expected: dict, shape, keep=None, pins=None) 
             with _plain_versions():
                 want = [fn(raw) for raw in requests]
     _check_launches_per_request(per_request, expected, what)
-    errs, top = [], 0.0
-    for raw, got, ref in zip(requests, answers, want):
-        if tuple(got.shape) != tuple(shape) or not torch.isfinite(got).all():
-            raise AssertionError(f"{what}: output {tuple(got.shape)} (expected {shape}), finite "
-                                 f"{bool(torch.isfinite(got).all())}")
-        if keep is not None:
-            m = keep(raw)
-            got, ref = got[m], ref[m]
-        errs.append((got.float() - ref.float()).abs().max().item())
-        top = max(top, ref.float().abs().max().item())
-        torch.testing.assert_close(got.float(), ref.float(), atol=LOGIT_ATOL, rtol=LOGIT_RTOL)
-    print(f"{what}: {len(requests)} requests, output {tuple(shape)}, max |kernel - plain| "
-          f"{max(errs):.6g} (tol {LOGIT_ATOL} / {LOGIT_RTOL}, max |plain| {top:.4g}), launches "
-          f"{launches}", flush=True)
+    shapes = shape if isinstance(shape, dict) else {"": shape}
+    errs, tops, bounds = {k: 0.0 for k in shapes}, {k: 0.0 for k in shapes}, {}
+    for raw, answer, reference in zip(requests, answers, want):
+        for key, want_shape in shapes.items():
+            got, ref = (answer[key], reference[key]) if key else (answer, reference)
+            if tuple(got.shape) != tuple(want_shape) or not torch.isfinite(got.float()).all():
+                raise AssertionError(
+                    f"{what} {key}: output {tuple(got.shape)} (expected {want_shape}), finite "
+                    f"{bool(torch.isfinite(got.float()).all())}")
+            if keep is not None:
+                m = keep(raw)
+                got, ref = got[m], ref[m]
+            errs[key] = max(errs[key], (got.float() - ref.float()).abs().max().item())
+            tops[key] = max(tops[key], ref.float().abs().max().item())
+            atol, rtol = (tols or {}).get(key, (LOGIT_ATOL, LOGIT_RTOL))
+            atol = atol(ref) if callable(atol) else atol
+            bounds[key] = (round(max(bounds.get(key, (0.0,))[0], atol), 6), rtol)
+            torch.testing.assert_close(got.float(), ref.float(), atol=atol, rtol=rtol,
+                                       msg=lambda m, key=key: f"{what} {key}: {m}")
+    held = "; ".join(
+        f"{key + ' ' if key else ''}{tuple(shapes[key])} max |kernel - plain| {errs[key]:.6g} "
+        f"(tol {bounds[key]}, max |plain| {tops[key]:.4g})" for key in shapes)
+    print(f"{what}: {len(requests)} requests, output {held}, launches {launches}", flush=True)
     return launches
 
 
@@ -3437,6 +3482,274 @@ def phase_dense(seed: int, dev, profile: bool = False) -> dict:
 
 
 # --------------------------------------------------------------------------
+# 2D detection: Mask R-CNN, Cascade R-CNN and HTC++ over the ViT-Adapter at
+# the COCO YAMLs' full width
+# --------------------------------------------------------------------------
+
+# The COCO YAMLs' published widths: the ViT-B16 adapter at 1024^2 (a 64 x 64
+# grid, no cls token: T = 4096, where 12 heads fail the fused gate, so every
+# block is flash), FPN 768 -> 256 over 5 levels, RPN top 512 of each level
+# and 256 proposals, 80 classes, mask 14 -> 28, BF16.
+DET_YAMLS = {"mask_rcnn": "coco_mask_rcnn_metatransformer",
+             "cascade": "coco_cascade_rcnn_metatransformer",
+             "htc": "coco_htcpp_metatransformer"}
+DET_BATCHES = (1, 2)
+DET_T = 4096
+# Boxes are held in pixels of the 1024^2 image: with the choices replayed a
+# box moves only by what the kernels' rounding moves its deltas, times its
+# side (a delta of 1e-3 on a 1000-pixel box is one pixel). Labels are
+# replayed and held equal; scores at the serving bound. The mask and
+# semantic logits come out of deep fp32 conv stacks with He-initialised
+# weights and no normalisation (HTC++: 4 convs a stage and 3 stages chained
+# by the info flow), so their scale grows with depth: they are held at the
+# serving bound taken relative to their scale, an atol of DET_REL_ATOL of
+# the plain run's largest |value| (the serving bound's 0.15 is 0.03 of a
+# largest logit of 5) and LOGIT_RTOL. The kernels' drift reaches them in
+# proportion: the card measured the Mask R-CNN and Cascade masks' max abs
+# error at 0.9% and 2.2% of their largest value.
+DET_BOX_ATOL = 1.0
+DET_REL_ATOL = 0.03
+
+
+def _scaled_atol(ref: torch.Tensor) -> float:
+    return max(LOGIT_ATOL, DET_REL_ATOL * ref.float().abs().max().item())
+
+
+DET_TOLS = {"boxes": (DET_BOX_ATOL, 0.0), "labels": (0.0, 0.0),
+            "masks": (_scaled_atol, LOGIT_RTOL), "semantic": (_scaled_atol, LOGIT_RTOL)}
+DET_TIMING_REPS = 10  # forwards and recipe steps of the detection family
+DET_LSJ_SCALES = (0.3, 0.8, 1.7)
+
+
+def _detection_pins(train: bool = False) -> _Replayed:
+    """The detection path's discrete choices, recorded from the plain run
+    and replayed: each level's top-k, the NMS keeps, each box's RoI level
+    and, serving, its top class; training, each proposal's assignment. A
+    rounding difference flips any of them at its edge, and then the two
+    runs' boxes are no longer the same boxes."""
+    from metatransformer_tpu_torch.heads import detection2d as det2d
+
+    names = ("level_topk", "nms_xyxy", "roi_levels") + (
+        ("rcnn_assign",) if train else ("top_class",))
+    return _Replayed(*((det2d, name) for name in names))
+
+
+def _detection_cfgs():
+    """(Mask R-CNN, Cascade R-CNN, HTC++) configs of the COCO YAMLs, as
+    ``recipes.py`` builds them."""
+    from metatransformer_tpu_torch import recipes
+    from metatransformer_tpu_torch.configs import load_config
+
+    cfgs = {name: load_config(_recipe_yaml(stem)) for name, stem in DET_YAMLS.items()}
+    return (recipes.detection2d_config(cfgs["mask_rcnn"]),
+            recipes.detection2d_config(cfgs["cascade"]), recipes.htc_config(cfgs["htc"]))
+
+
+def _lsj_on_card(seed: int, dev) -> float:
+    """``large_scale_jitter`` on the card against the CPU at DET_LSJ_SCALES
+    on a b = 2 batch of 1024^2 images: the resize within RESIZE_TOL of
+    max(1, max |value|), the boxes equal; then one draw from a generator on
+    the card, in range. Returns the worst resize error."""
+    from metatransformer_tpu_torch.train import augment
+
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(2, 1024, 1024, 3, generator=g)
+    boxes = torch.rand(2, 4, 4, generator=g) * 1100
+    worst = 0.0
+    for scale in DET_LSJ_SCALES:
+        want = augment.large_scale_jitter(None, x, boxes, scale=scale)
+        got = augment.large_scale_jitter(None, x.to(dev), boxes.to(dev), scale=scale)
+        err = (got[0].cpu() - want[0]).abs().max().item() / max(1.0, want[0].abs().max().item())
+        same_boxes = torch.equal(got[1].cpu(), want[1])
+        print(f"large_scale_jitter scale {scale} b=2 1024^2 on the card vs the CPU: image "
+              f"{err:.3g} (tol {RESIZE_TOL}), boxes equal {same_boxes}", flush=True)
+        if err > RESIZE_TOL or not same_boxes:
+            raise AssertionError(f"large_scale_jitter at {scale}: the card disagrees with the CPU")
+        worst = max(worst, err)
+    scale = augment.large_scale_jitter(torch.Generator(device=dev).manual_seed(seed), x[:1].to(dev),
+                                       boxes[:1].to(dev))[2].item()
+    if not 0.1 <= scale < 2.0:
+        raise AssertionError(f"large_scale_jitter drew the scale {scale} on the card")
+    return worst
+
+
+def _detection_step(params, cfg, images, seed: int) -> dict:
+    """The forward and backward of the Mask R-CNN loss at ``images``' batch
+    on a synthetic COCO batch of the recipe (2 boxes an image, their masks),
+    first with the plain versions recording the choices, then with the
+    kernels replaying them, from the same weights: 12 launches each of #4,
+    #5 and #6 and no other; loss within LOSS_TOL, the gradient of the
+    largest leaf within GRAD_STEP_REL_L2; peak memory. Returns the
+    launches."""
+    from metatransformer_tpu_torch import ops, recipes
+    from metatransformer_tpu_torch.core import encoder as enc
+    from metatransformer_tpu_torch.models import mask_rcnn
+    from metatransformer_tpu_torch.train import trainer as trainer_lib
+
+    b, img = images.shape[:2]
+    synth = recipes._detection_synth(img, cfg.rcnn.num_classes)
+    gt = {k: torch.as_tensor(v).to(images.device)
+          for k, v in next(iter(synth(b, 1, seed + 2)))["input"].items()}
+    pins = _detection_pins(train=True)
+
+    def step():
+        tree = trainer_lib._to_device_tree(params, images.device, trainable=True)
+        loss, logs = mask_rcnn.forward_train(
+            tree, images, gt["gt_boxes"], gt["gt_labels"], gt["gt_valid"], cfg,
+            gt_masks=gt["gt_masks"], precision=enc.BF16)
+        loss.backward()
+        path, leaf = _largest_leaf(tree)
+        return loss.item(), {k: round(v.item(), 5) for k, v in logs.items()}, path, leaf.grad
+
+    with _plain_versions(), pins.record():
+        ref_loss, ref_logs, _, ref_grad = step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    with pins.replay():
+        loss, logs, path, grad = step()
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    pins.check("detection step")
+    depth = cfg.backbone.encoder.depth
+    want = {k: depth for k in FLASH_KERNELS}
+    if launches != {k: want.get(k, 0) for k in launches}:
+        raise AssertionError(f"detection step: launches {launches}, expected {want}")
+    rel_l2 = ((grad - ref_grad).norm() / ref_grad.norm()).item()
+    print(f"detection mask_rcnn step b={b}: loss {loss:.5f} against plain {ref_loss:.5f} (tol "
+          f"{LOSS_TOL}), terms {logs} (plain {ref_logs}); gradient of {'/'.join(map(str, path))} "
+          f"{tuple(grad.shape)} relative L2 {rel_l2:.4f} (max {GRAD_STEP_REL_L2}); peak memory "
+          f"{peak:.3f} GiB; launches {launches}", flush=True)
+    if abs(loss - ref_loss) > LOSS_TOL or not rel_l2 <= GRAD_STEP_REL_L2:
+        raise AssertionError("detection step differs from the plain versions")
+    return launches
+
+
+def phase_detection(seed: int, dev, profile: bool = False) -> dict:
+    """2D detection at the COCO YAMLs' full width (ViT-B16 adapter, 1024^2,
+    T = 4096, 80 classes, BF16, seeded weights), through the port's entry
+    points with no device named: (a) the backbone, FPN and RPN of Mask
+    R-CNN at b = 1 and 2, every FPN map and RPN output held (the tensors
+    before the first choice); (b) ``forward_test`` of Mask R-CNN, Cascade
+    R-CNN and HTC++ at b = 1 and 2, 12 flash forwards a request and no other
+    launch, boxes, scores, labels and masks (HTC++: also its semantic
+    logits) against the plain versions with the choices replayed
+    (``_detection_pins``); (c) one backward of the Mask R-CNN loss at b = 2
+    (``_detection_step``); (d) ``large_scale_jitter`` on the card against
+    the CPU; (e) the three forwards and the NMS loop timed at b = 2, and
+    under ``profile`` their device time by kernel, their idle share, the
+    NMS loop's kernels and the share of the Mask R-CNN forward outside the
+    12 ViT blocks. Returns the launches by path."""
+    from contextlib import ExitStack
+
+    from metatransformer_tpu_torch.core import encoder as enc
+    from metatransformer_tpu_torch.heads import detection2d as det2d
+    from metatransformer_tpu_torch.models import htc, mask_rcnn, vit_adapter
+
+    t0 = time.perf_counter()
+    mcfg, ccfg, hcfg = _detection_cfgs()
+    bcfg = mcfg.backbone
+    img, depth = mcfg.img_size, bcfg.encoder.depth
+    flash = _expected_launches((img // bcfg.patch_size) ** 2, depth)
+    if (img // bcfg.patch_size) ** 2 != DET_T or flash != {"flash_fwd": depth}:
+        raise AssertionError(f"the COCO backbone at {img}^2 does not resolve to flash at {DET_T}")
+    gen = torch.Generator().manual_seed(seed)
+    mparams = mask_rcnn.init(mcfg, gen)  # no device named: the card
+    if mparams["rcnn"]["stages"][0]["cls"]["w"].device.type != "cuda":
+        raise AssertionError("the detector did not land on the card")
+    cparams = {**mparams, "rcnn": det2d.rcnn_init(ccfg.rcnn, gen)}
+    hparams = htc.init(hcfg, gen)
+    g = torch.Generator().manual_seed(seed + 1)
+    images = {b: torch.randn(b, img, img, 3, generator=g).to(dev) for b in DET_BATCHES}
+
+    def common(x):
+        feats = vit_adapter.apply(mparams["backbone"], x, bcfg, enc.BF16)
+        fpn = det2d.fpn_apply(mparams["fpn"], feats, mcfg.fpn)
+        out = {f"fpn{i}": f for i, f in enumerate(fpn)}
+        for i, (cls, reg) in enumerate(det2d.rpn_apply(mparams["rpn"], fpn, mcfg.rpn)):
+            out[f"rpn_cls{i}"], out[f"rpn_reg{i}"] = cls, reg
+        return out
+
+    def common_shapes(b):
+        shapes = {}
+        for i, st in enumerate(mcfg.rpn.strides):
+            s, a = img // st, mcfg.rpn.num_anchors
+            shapes.update({f"fpn{i}": (b, s, s, mcfg.fpn.out_channels),
+                           f"rpn_cls{i}": (b, s * s * a), f"rpn_reg{i}": (b, s * s * a, 4)})
+        return shapes
+
+    def outputs(b, cfg):
+        p, m = cfg.rpn.max_proposals, 2 * cfg.rcnn.mask_size
+        shapes = {"boxes": (b, p, 4), "scores": (b, p), "labels": (b, p),
+                  "masks": (b, p, m, m, cfg.rcnn.num_classes)}
+        if cfg is hcfg:
+            shapes["semantic"] = (b, img // 8, img // 8, hcfg.semantic_classes)
+        return shapes
+
+    models = {
+        "mask_rcnn": lambda x: mask_rcnn.forward_test(mparams, x, mcfg, enc.BF16),
+        "cascade": lambda x: mask_rcnn.forward_test(cparams, x, ccfg, enc.BF16),
+        "htc": lambda x: htc.forward_test(hparams, x, hcfg, enc.BF16),
+    }
+    cfgs = {"mask_rcnn": mcfg, "cascade": ccfg, "htc": hcfg}
+    launches = {}
+
+    def run_all(path, fn, shape_of, pins=None):
+        runs = [_held(f"detection {path} b={b}", fn, [images[b]], flash, shape_of(b),
+                      pins=pins, tols=DET_TOLS) for b in DET_BATCHES]
+        launches[f"detection_{path}"] = {k: sum(r[k] for r in runs) for k in runs[0]}
+
+    run_all("common", common, common_shapes)
+    pins = _detection_pins()
+    for name, fn in models.items():
+        run_all(name, fn, lambda b, name=name: outputs(b, cfgs[name]), pins)
+        pins.check(f"detection {name}")
+    launches["detection_step"] = _detection_step(mparams, mcfg, images[2], seed)
+    worst_lsj = _lsj_on_card(seed, dev)
+
+    smi, x = _smi(), images[2]
+    nms_args = []
+    nms = det2d.nms_xyxy
+    with torch.no_grad():
+        with ExitStack() as stack:
+            stack.enter_context(mock.patch.object(
+                det2d, "nms_xyxy", lambda *a: nms_args.append(a) or nms(*a)))
+            models["mask_rcnn"](x)
+        times = {name: _median_ms(lambda fn=fn: fn(x), DET_TIMING_REPS)
+                 for name, fn in models.items()}
+        nms_ms = _median_ms(lambda: nms(*nms_args[0]), DET_TIMING_REPS)
+        b, n = nms_args[0][0].shape[:2]
+        print(f"detection forward times b=2 (ms, median of {DET_TIMING_REPS}, {smi}): "
+              + json.dumps({k: round(v, 4) for k, v in times.items()}) + f"; the NMS loop "
+              f"alone (b={b}, {n} boxes -> {nms_args[0][3]} proposals an image, {n} x {n} IoU "
+              f"matrices): {nms_ms:.4f} ms", flush=True)
+        if profile:
+            busy = {name: _profile_step(lambda fn=fn: fn(x), f"detection {name} forward b=2",
+                                        top=16) for name, fn in models.items()}
+            _profile_step(lambda: nms(*nms_args[0]), "the NMS loop alone b=2", top=12)
+            blocks_params = enc.cast_params(mparams["backbone"]["encoder"], enc.BF16)
+            h0 = torch.randn(2, DET_T, bcfg.encoder.dim, generator=g).to(dev, torch.bfloat16)
+
+            def vit_blocks():
+                h = h0
+                for j in range(depth):
+                    h = enc.block(h, {k: v[j] for k, v in blocks_params.items()},
+                                  bcfg.encoder, None, enc.BF16)
+                return h
+
+            inside = _profile_step(vit_blocks, "the 12 ViT blocks alone b=2 T=4096", top=8)
+            for name in models:
+                print(f"detection {name} forward b=2: {100 * (1 - inside / busy[name]):.2f}% of "
+                      f"its device time outside the ViT blocks", flush=True)
+    del mparams, cparams, hparams, nms_args
+    torch.cuda.empty_cache()
+    print(f"phase_detection: {time.perf_counter() - t0:.1f} s, worst LSJ resize error "
+          f"{worst_lsj:.3g}", flush=True)
+    return launches
+
+
+# --------------------------------------------------------------------------
 # The training entry point: every ported recipe YAML through train_cli
 # --------------------------------------------------------------------------
 
@@ -3448,6 +3761,10 @@ RECIPE_BATCH, RECIPE_STEPS = 8, 2  # the others: min(yaml, 8), 1 epoch of 2 step
 DENSE_RECIPES = ("ade20k_mask2former_metatransformer", "ade20k_upernet_metatransformer",
                  "coco_mask2former_metatransformer")
 DENSE_RECIPE_BATCH = 2
+# The COCO detection recipes too (coco_mask_rcnn_metatransformer.yaml: batch
+# 16 = 8 GPUs x 2); their steps are timed by a median of DET_TIMING_REPS.
+DETECTION_RECIPES = ("coco_cascade_rcnn_metatransformer", "coco_htcpp_metatransformer",
+                     "coco_mask_rcnn_metatransformer", "coco_upgraded_mask_rcnn_metatransformer")
 FUSED_PATH, FLASH_PATH = FUSED_KERNELS, FLASH_KERNELS
 # The kernels each recipe's training launches, by where its encoder's T
 # falls (``core/encoder.py`` ``_resolve_impl``): the fused sublayers and
@@ -3459,7 +3776,11 @@ RECIPE_KERNELS = {
     "ade20k_upernet_metatransformer": FLASH_PATH,  # T = 1024
     "adult_tabtransformer": FUSED_PATH,  # T = 9
     "bankm_tabtransformer": FUSED_PATH,  # T = 10
+    "coco_cascade_rcnn_metatransformer": FLASH_PATH,  # adapter at 1024^2, 64 x 64: T = 4096
+    "coco_htcpp_metatransformer": FLASH_PATH,  # T = 4096
     "coco_mask2former_metatransformer": FLASH_PATH,  # T = 1024
+    "coco_mask_rcnn_metatransformer": FLASH_PATH,  # T = 4096
+    "coco_upgraded_mask_rcnn_metatransformer": FLASH_PATH,  # T = 4096
     "etth1_metatransformer": FUSED_PATH,  # T = 96
     "ettm1_imputation_metatransformer": FUSED_PATH,  # T = 96
     "imagenet_large_metatransformer": FUSED_PATH,  # ViT-L14, T = 257
@@ -3487,8 +3808,11 @@ RECIPE_KERNELS = {
 }
 # held against the plain versions (losses, first gradient and update of the
 # largest trainable leaf, at the point bounds); Mask2Former with its masks,
-# assignments and loss points pinned to the plain run's (_mask2former_pins)
+# assignments and loss points pinned to the plain run's (_mask2former_pins),
+# the detectors with their proposals, RoI levels and assignments
+# (_detection_pins)
 RECIPE_HELD = ("ade20k_mask2former_metatransformer", "ade20k_upernet_metatransformer",
+               "coco_htcpp_metatransformer", "coco_mask_rcnn_metatransformer",
                "modelnet40_metatransformer", "s3dis_metatransformer")
 
 
@@ -3632,7 +3956,8 @@ def _recipe_batch(stem: str) -> int:
     yaml_batch = load_config(_recipe_yaml(stem)).train.batch_size
     if stem == RECIPE_FLAGSHIP:
         return yaml_batch
-    return min(yaml_batch, DENSE_RECIPE_BATCH if stem in DENSE_RECIPES else RECIPE_BATCH)
+    return min(yaml_batch, DENSE_RECIPE_BATCH if stem in DENSE_RECIPES + DETECTION_RECIPES
+               else RECIPE_BATCH)
 
 
 def _hold_recipe(stem: str, seed: int) -> None:
@@ -3641,9 +3966,10 @@ def _hold_recipe(stem: str, seed: int) -> None:
     the same two steps from the same weights with the plain versions:
     losses within LOSS_TOL (Mask2Former: M2F_LOSS_RTOL of the plain run's),
     the first gradient and the update of the largest trainable leaf at the
-    point bounds. Mask2Former recipes run the
-    plain versions first, recording their masks, assignments and loss
-    points, and the kernels replay them."""
+    point bounds. Mask2Former and detection recipes run the plain versions
+    first, recording their masks, assignments and loss points (detection:
+    proposals, RoI levels and assignments, ``_detection_pins``), and the
+    kernels replay them."""
     from metatransformer_tpu_torch import train_cli
 
     argv = _recipe_argv(stem, seed)
@@ -3685,6 +4011,13 @@ def _hold_recipe(stem: str, seed: int) -> None:
         if not all(np.isfinite(hi_losses)) or max(hi_diffs) > LOSS_TOL:
             raise AssertionError(f"recipe {stem} with the head at 'highest': losses "
                                  f"{hi_losses} against plain {hi_ref_losses}")
+    elif stem in DETECTION_RECIPES:
+        pins = _detection_pins(train=True)
+        with _plain_versions(), pins.record():
+            _, ref_losses, ref_grad, ref_update, _ = run()
+        with pins.replay():
+            path, losses, grad, update, start = run()
+        pins.check(f"recipe {stem}")
     else:
         path, losses, grad, update, start = run()
         with _plain_versions():
@@ -3734,15 +4067,20 @@ def _recipe_argv(stem: str, seed: int) -> list:
             f"seed={seed}"]
 
 
-def phase_dense_recipes(seed: int, dev, profile: bool = False) -> None:
-    """``--dense`` only: the dense recipes' holds (those in RECIPE_HELD) and
-    step times, as ``phase_recipes`` takes them, without the other recipes."""
+def _recipe_reps(stem: str) -> int:
+    return DET_TIMING_REPS if stem in DETECTION_RECIPES else TIMING_REPS
+
+
+def phase_family_recipes(stems, what: str, seed: int, dev, profile: bool = False) -> None:
+    """``--dense`` and ``--detection`` only: the holds (those in RECIPE_HELD)
+    and step times of one family's recipes, as ``phase_recipes`` takes them,
+    without the other recipes."""
     import gc
 
     from metatransformer_tpu_torch import train_cli
 
     times = {}
-    for stem in DENSE_RECIPES:
+    for stem in stems:
         if stem in RECIPE_HELD:
             _hold_recipe(stem, seed)
         session = train_cli.setup(_recipe_argv(stem, seed))
@@ -3750,11 +4088,11 @@ def phase_dense_recipes(seed: int, dev, profile: bool = False) -> None:
             f"recipe {stem} step", session.trainer, next(iter(session.train_batches())),
             "samples", torch.Generator(device=dev).manual_seed(seed),
             f"recipe {stem} step b={DENSE_RECIPE_BATCH}" if profile else None,
-            size=DENSE_RECIPE_BATCH, top=6)
+            size=DENSE_RECIPE_BATCH, top=6, reps=_recipe_reps(stem))
         del session
         gc.collect()
         torch.cuda.empty_cache()
-    print("dense recipe step times (ms, median of " + str(TIMING_REPS) + ", " + _smi() + "): "
+    print(f"{what} recipe step times (ms, median of {_recipe_reps(stems[0])}, {_smi()}): "
           + json.dumps({k: round(v, 4) for k, v in times.items()}), flush=True)
 
 
@@ -3811,7 +4149,8 @@ def phase_recipes(seed: int, dev, profile: bool = False) -> tuple:
             times[stem] = _time_step(
                 f"recipe {stem} step", session.trainer, next(iter(session.train_batches())),
                 "samples", torch.Generator(device=dev).manual_seed(seed),
-                f"recipe {stem} step b={batch}" if profile else None, size=batch, top=6)
+                f"recipe {stem} step b={batch}" if profile else None, size=batch, top=6,
+                reps=_recipe_reps(stem))
             del session
             gc.collect()
             torch.cuda.empty_cache()
@@ -3858,8 +4197,9 @@ def phase_recipes(seed: int, dev, profile: bool = False) -> tuple:
     del trainer
     gc.collect()
     torch.cuda.empty_cache()
-    print("recipe step times (ms, median of " + str(TIMING_REPS) + ", " + smi + "): "
-          + json.dumps({k: round(v, 4) for k, v in times.items()}), flush=True)
+    print(f"recipe step times (ms, median of {TIMING_REPS}, the detection recipes of "
+          f"{DET_TIMING_REPS}, {smi}): " + json.dumps({k: round(v, 4) for k, v in times.items()}),
+          flush=True)
     return launches, worst
 
 
@@ -3892,6 +4232,10 @@ def main() -> None:
     ap.add_argument("--dense", action="store_true",
                     help="only build and run phase_dense, then hold and time the three dense "
                          "recipes (DENSE_RECIPES) as phase_recipes does; prints no result")
+    ap.add_argument("--detection", action="store_true",
+                    help="only build and run phase_detection, then hold and time the four COCO "
+                         "detection recipes (DETECTION_RECIPES) as phase_recipes does; prints "
+                         "no result")
     ap.add_argument("--recipes", action="store_true",
                     help="only build and train every ported recipe YAML through train_cli "
                          "at full width (phase_recipes); prints no result")
@@ -3919,7 +4263,11 @@ def main() -> None:
         return
     if args.dense:
         phase_dense(args.seed, dev, args.profile)
-        phase_dense_recipes(args.seed, dev, args.profile)
+        phase_family_recipes(DENSE_RECIPES, "dense", args.seed, dev, args.profile)
+        return
+    if args.detection:
+        phase_detection(args.seed, dev, args.profile)
+        phase_family_recipes(DETECTION_RECIPES, "detection", args.seed, dev, args.profile)
         return
     errs = phase_kernels(args.seed, dev)
     phase_autograd(args.seed, dev)
@@ -3965,6 +4313,7 @@ def main() -> None:
     graph_launches = phase_graph(args.seed, dev, args.profile)
     phase_demo(args.seed)
     dense_launches = phase_dense(args.seed, dev, args.profile)
+    detection_launches = phase_detection(args.seed, dev, args.profile)
     recipe_launches, recipe_errs = phase_recipes(args.seed, dev, args.profile)
     for name, err in recipe_errs.items():
         errs[name] = max(errs[name], err)
@@ -3994,6 +4343,7 @@ def main() -> None:
         **serving_launches,
         **graph_launches,
         **dense_launches,
+        **detection_launches,
         **recipe_launches,
     }
     on_path = {  # the kernels each path must have gone through
@@ -4029,6 +4379,9 @@ def main() -> None:
         "dense_windowed": ("attn_sublayer", "mlp_sublayer", "flash_fwd"),
         "dense_windowed_step": FUSED_KERNELS + FLASH_KERNELS,
         "dense_mask2former": ("flash_fwd",),
+        **{f"detection_{path}": ("flash_fwd",)
+           for path in ("common", "mask_rcnn", "cascade", "htc")},
+        "detection_step": FLASH_KERNELS,
         **{f"recipes_{stem}": kinds for stem, kinds in RECIPE_KERNELS.items()},
         "recipes_imagenet_data": FUSED_KERNELS,
     }

@@ -82,9 +82,14 @@ def group_norm(x, scale, bias, groups=32, eps=1e-5):
 
 def resize(x, hw, method: str = "bilinear"):
     """NHWC ``jax.image.resize`` to ``hw`` (half-pixel centres; antialiased
-    when it downsamples; bicubic with a = -0.5)."""
-    out = F.interpolate(x.permute(0, 3, 1, 2), size=tuple(hw), mode=method,
-                        align_corners=False, antialias=True)
+    when it downsamples; bicubic with a = -0.5). Its ``"nearest"`` takes the
+    input pixel under each output pixel's centre, which is torch's
+    ``"nearest-exact"`` (torch's ``"nearest"`` floors the scaled corner)."""
+    if method == "nearest":
+        out = F.interpolate(x.permute(0, 3, 1, 2), size=tuple(hw), mode="nearest-exact")
+    else:
+        out = F.interpolate(x.permute(0, 3, 1, 2), size=tuple(hw), mode=method,
+                            align_corners=False, antialias=True)
     return out.permute(0, 2, 3, 1)
 
 

@@ -872,14 +872,154 @@ def build_mask2former(cfg, generator, smoke=False, device=None):
     )
 
 
+def _detection_synth(img: int, num_classes: int, semantic_classes: Optional[int] = None):
+    """The reference's synthetic COCO batches: 2 boxes an image with
+    their box masks (and, for HTC, semantic labels inside the boxes, 255
+    elsewhere), in the reference's draw order."""
+
+    def synth(batch_size, n_batches, seed):
+        rng = np.random.default_rng(seed)
+        g = 2
+        for _ in range(n_batches):
+            x0y0 = rng.uniform(0, img // 2, (batch_size, g, 2))
+            wh = rng.uniform(img // 8, img // 2, (batch_size, g, 2))
+            boxes = np.concatenate([x0y0, np.minimum(x0y0 + wh, img - 1)], axis=-1).astype(
+                np.float32)
+            masks = np.zeros((batch_size, g, img, img), np.float32)
+            sem = np.full((batch_size, img, img), 255, np.int32)
+            for b in range(batch_size):
+                for gi in range(g):
+                    x0, y0, x1, y1 = boxes[b, gi].astype(int)
+                    masks[b, gi, y0:y1, x0:x1] = 1.0
+                    if semantic_classes is not None:
+                        sem[b, y0:y1, x0:x1] = (gi + 1) % semantic_classes
+            batch = {
+                "image": _f32(rng.standard_normal((batch_size, img, img, 3))),
+                "gt_boxes": boxes,
+                "gt_labels": rng.integers(0, num_classes, (batch_size, g)).astype(np.int32),
+                "gt_valid": np.ones((batch_size, g), bool),
+                "gt_masks": masks,
+            }
+            if semantic_classes is not None:
+                batch["semantic_labels"] = sem
+            yield {"input": batch}
+
+    return synth
+
+
+def htc_config(cfg, smoke: bool = False):
+    """The HTCConfig of a COCO HTC++ YAML: its published geometry, or the
+    smoke one."""
+    from metatransformer_tpu_torch.heads import detection2d as d2
+    from metatransformer_tpu_torch.models import htc
+
+    bcfg = _adapter_cfg(cfg, smoke)
+    if smoke:
+        return htc.HTCConfig(
+            backbone=bcfg,
+            fpn=d2.FPNConfig(in_channels=(32,) * 4, out_channels=32),
+            rpn=d2.RPNConfig(channels=32, nms_pre=64, max_proposals=8),
+            rcnn=d2.RCNNConfig(num_classes=5, channels=32, fc_dim=64, num_stages=3,
+                               with_mask=True, mask_size=7),
+            img_size=bcfg.img_size, semantic_classes=12, semantic_convs=2,
+        )
+    d = bcfg.encoder.dim
+    return htc.HTCConfig(
+        backbone=bcfg,
+        fpn=d2.FPNConfig(in_channels=(d,) * 4),
+        rcnn=d2.RCNNConfig(num_classes=cfg.model.rcnn.get("num_classes", 80), num_stages=3,
+                           with_mask=True),
+        img_size=bcfg.img_size,
+        semantic_classes=cfg.model.get("semantic_classes", 183),
+    )
+
+
 def build_htc(cfg, generator, smoke=False, device=None):
-    """COCO HTC++."""
-    _not_ported("the HTC++ recipe (build_htc, models/htc.py)", _ITEM_9)
+    """COCO HTC++ (interleaved cascade + mask info flow + semantic branch,
+    ``Image/detection/configs/htc++/``). The parameters are
+    ``{"backbone", "fpn", "rpn", "rcnn", "mask_stages", "sem_*"}``: the CLI
+    freezes and layer-decays only a top-level ``"encoder"``, so the whole
+    model trains at one rate, as in the reference."""
+    from metatransformer_tpu_torch.models import htc
+
+    device = _device.resolve(device)
+    mcfg = htc_config(cfg, smoke)
+    params = htc.init(mcfg, generator, device)
+
+    def forward(p, x, gen):
+        x = batch_to_device(x, device)
+        return htc.forward_train(
+            p, x["image"], x["gt_boxes"], x["gt_labels"], x["gt_valid"], mcfg,
+            gt_masks=x["gt_masks"], semantic_labels=x["semantic_labels"], precision=enc.BF16,
+        )[0]
+
+    synth = _detection_synth(mcfg.img_size, mcfg.rcnn.num_classes, mcfg.semantic_classes)
+    return Recipe(
+        params, forward, synth, loss_fn=_identity_loss, classification=False, best_mode="min",
+    )
+
+
+def detection2d_config(cfg, smoke: bool = False):
+    """The MaskRCNNConfig of a COCO Mask / Cascade / upgraded Mask R-CNN
+    YAML: its published geometry, or the smoke one."""
+    from metatransformer_tpu_torch.heads import detection2d as d2
+    from metatransformer_tpu_torch.models import mask_rcnn
+
+    r = cfg.model.rcnn
+    rcnn = dict(num_stages=r.get("num_stages", 1),
+                stage_ious=tuple(r.get("stage_ious", (0.5, 0.6, 0.7))),
+                with_mask=r.get("with_mask", True), bbox_head=r.get("bbox_head", "2fc"))
+    bcfg = _adapter_cfg(cfg, smoke)
+    if smoke:
+        return mask_rcnn.MaskRCNNConfig(
+            backbone=bcfg,
+            fpn=d2.FPNConfig(in_channels=(32,) * 4, out_channels=32),
+            rpn=d2.RPNConfig(channels=32, nms_pre=64, max_proposals=16),
+            rcnn=d2.RCNNConfig(num_classes=5, channels=32, fc_dim=64, mask_size=7, **rcnn),
+            img_size=bcfg.img_size,
+        )
+    d = bcfg.encoder.dim
+    return mask_rcnn.MaskRCNNConfig(
+        backbone=bcfg,
+        fpn=d2.FPNConfig(in_channels=(d,) * 4),
+        rpn=d2.RPNConfig(),
+        rcnn=d2.RCNNConfig(num_classes=r.get("num_classes", 80), **rcnn),
+        img_size=bcfg.img_size,
+    )
 
 
 def build_detection2d(cfg, generator, smoke=False, device=None):
-    """COCO Mask / Cascade R-CNN over ViT-Adapter FPN."""
-    _not_ported("the 2D detection recipe (build_detection2d, models/mask_rcnn.py)", _ITEM_9)
+    """COCO Mask / Cascade R-CNN over the ViT-Adapter FPN
+    (``Image/detection/configs/{mask_rcnn,cascade_rcnn,upgraded_mask_rcnn}/``),
+    with large-scale jitter in ``forward`` where ``train.lsj`` is set, its
+    scale drawn from the step's generator (one seeded 0 where the caller
+    passes none). As in the reference, LSJ scales the boxes and leaves
+    ``gt_masks`` as they are. The whole model trains at one rate (see
+    :func:`build_htc`)."""
+    from metatransformer_tpu_torch.models import mask_rcnn
+    from metatransformer_tpu_torch.train import augment
+
+    device = _device.resolve(device)
+    mcfg = detection2d_config(cfg, smoke)
+    params = mask_rcnn.init(mcfg, generator, device)
+    use_lsj = cfg.train.get("lsj", False)
+
+    def forward(p, x, gen):
+        x = batch_to_device(x, device)
+        image, gt_boxes = x["image"], x["gt_boxes"]
+        if use_lsj:
+            if gen is None:  # the reference's key where the caller passes none
+                gen = torch.Generator(device=device).manual_seed(0)
+            image, gt_boxes, _ = augment.large_scale_jitter(gen, image, gt_boxes)
+        return mask_rcnn.forward_train(
+            p, image, gt_boxes, x["gt_labels"], x["gt_valid"], mcfg,
+            gt_masks=x["gt_masks"] if mcfg.rcnn.with_mask else None, precision=enc.BF16,
+        )[0]
+
+    synth = _detection_synth(mcfg.img_size, mcfg.rcnn.num_classes)
+    return Recipe(
+        params, forward, synth, loss_fn=_identity_loss, classification=False, best_mode="min",
+    )
 
 
 def build_pointpillars(cfg, generator, smoke=False, device=None):

@@ -10,8 +10,9 @@ ported recipe YAML at --smoke geometry on the CPU:
   recipe in eval mode (no generator);
 - ``loss_fn`` matches at 1e-5 on fixed arrays.
 
-The 27 YAMLs of families the port does not have raise NotImplementedError
-naming their ROADMAP item.
+The four COCO detection recipes are held in
+tests/test_torch_detection_recipes.py. The 23 YAMLs of families the port
+does not have raise NotImplementedError naming their ROADMAP item.
 """
 
 import functools
@@ -58,9 +59,7 @@ PORTED = [
 UNPORTED = {
     "imagenet_moe_metatransformer.yaml": "item 8",
     **{name: "item 9" for name in (
-        "coco_cascade_rcnn_metatransformer.yaml", "coco_htcpp_metatransformer.yaml",
-        "coco_mask_rcnn_metatransformer.yaml",
-        "coco_upgraded_mask_rcnn_metatransformer.yaml", "kitti_caddn.yaml",
+        "kitti_caddn.yaml",
         "kitti_centerpoint.yaml", "kitti_iassd.yaml", "kitti_part_a2.yaml",
         "kitti_point_rcnn.yaml", "kitti_pointpillars.yaml", "kitti_pv_rcnn.yaml",
         "kitti_pv_rcnn_pp.yaml", "kitti_second.yaml", "kitti_second_iou.yaml",
@@ -70,6 +69,10 @@ UNPORTED = {
         "s3dis_randlanet.yaml", "s3dis_stratified.yaml", "semantickitti_randlanet.yaml",
     )},
 }
+# the COCO detection recipes, held in tests/test_torch_detection_recipes.py
+DETECTION = ("coco_cascade_rcnn_metatransformer.yaml", "coco_htcpp_metatransformer.yaml",
+             "coco_mask_rcnn_metatransformer.yaml",
+             "coco_upgraded_mask_rcnn_metatransformer.yaml")
 MAE = ("kinetics400_videomae_pretrain.yaml", "modelnet40_pointmae_pretrain.yaml")
 MASK2FORMER = ("ade20k_mask2former_metatransformer.yaml", "coco_mask2former_metatransformer.yaml")
 GRAPH = ("pcqm4mv2_tokengt.yaml", "pcqm4mv2_tokengt_performer.yaml")
@@ -102,8 +105,8 @@ def test_the_ported_list_is_exact():
     """Every shipped recipe is either ported or named unported: exact
     counts, so a new YAML or a newly ported family shows here."""
     every = sorted(n for n in os.listdir(CONFIG_DIR) if n.endswith(".yaml") and n != "default.yaml")
-    assert len(PORTED) == 28 and len(UNPORTED) == 27
-    assert sorted(PORTED + list(UNPORTED)) == every
+    assert len(PORTED) == 28 and len(DETECTION) == 4 and len(UNPORTED) == 23
+    assert sorted(PORTED + list(DETECTION) + list(UNPORTED)) == every
 
 
 @pytest.mark.parametrize("name", PORTED)
