@@ -10,7 +10,8 @@ bucket ladder and the audio, hyper-spectral, tabular and time-series models
 payloads), the graph predictor, the demo CLI, the dense-prediction family
 (ViT-Adapter with UperNet, test-time augmentation, windowed blocks and
 Mask2Former at 512^2), 2D detection (Mask R-CNN, Cascade R-CNN and HTC++
-over the ViT-Adapter at 1024^2) and every ported training recipe through
+over the ViT-Adapter at 1024^2), KITTI 3D detection (PointPillars, SECOND,
+Voxel R-CNN and PV-RCNN) and every ported training recipe through
 ``train_cli`` on one NVIDIA GPU through the hand-written kernels.
 
     python3 chip_smoke.py [--seed N] [--profile]
@@ -21,6 +22,7 @@ over the ViT-Adapter at 1024^2) and every ported training recipe through
     python3 chip_smoke.py --recipes        # only every ported recipe YAML through train_cli
     python3 chip_smoke.py --dense          # only phase_dense and the dense recipes' holds and steps
     python3 chip_smoke.py --detection      # only phase_detection and the COCO recipes' holds and steps
+    python3 chip_smoke.py --det3d          # only phase_det3d and the KITTI recipes through train_cli
 
 Phases (any failed check raises, so the process exits non-zero):
 
@@ -141,11 +143,26 @@ Phases (any failed check raises, so the process exits non-zero):
     and the NMS loop timed at b = 2, median of 10 (``--profile``: by
     kernel, the idle share, the NMS loop's kernels and the share outside
     the 12 ViT blocks);
-13c. the training entry point: ``train_cli.main`` as a user runs it (no
-    ``--device``, no ``--smoke``: the card, full width) on each of the 32
+13c. KITTI 3D detection at the YAMLs' full width (fp32, seeded weights):
+    the ops on a 16,384-point scan against the CPU (the voxel set in the
+    (41, 1600, 1408) grid, a submanifold, strided and inverse sparse conv:
+    active sets equal, features at 1e-4 of their scale; the rotated IoU and
+    NMS of 1024 boxes: keep set equal); ``forward`` and ``predict`` of
+    PointPillars, SECOND, Voxel R-CNN and PV-RCNN at b = 1 on 16,384 points
+    and b = 2 on 1,024 against the same code on the CPU, the voxel set,
+    top-k, NMS keeps, grid-pool voxels and ball-group members recorded there
+    and replayed (``_det3d_pins``); PV-RCNN one launch of #7 a forward, the
+    others none; one backward of each loss at b = 2 against the CPU (its
+    assignments and RoI sampling replayed too); #7 at PV-RCNN's
+    (2, 1024, 2048) and (1, 16384, 2048) against its plain version; the
+    forwards, predicts and NMS loops timed at both cases, median of 10
+    (``--profile``: each predict's and NMS loop's device time by kernel);
+13d. the training entry point: ``train_cli.main`` as a user runs it (no
+    ``--device``, no ``--smoke``: the card, full width) on each of the 36
     ported recipe YAMLs of ``metatransformer_tpu/configs/``, 1 epoch of 2
     steps at ``train.batch_size=min(yaml, 8)`` (modelnet40 at its own 32,
-    the three dense and the four COCO detection recipes at 2; ViT-B16);
+    the three dense and the four COCO detection recipes at 2, the four
+    KITTI recipes at their own 32, 4, 2 and 2; ViT-B16);
     each recipe's launches counted under ``recipes_<stem>`` and held to the
     kernels its T resolves to, a finite final loss, its step timed as
     ``train_cli.setup`` builds it (median of 20, the detection recipes of
@@ -3750,6 +3767,445 @@ def phase_detection(seed: int, dev, profile: bool = False) -> dict:
 
 
 # --------------------------------------------------------------------------
+# 3D detection: the KITTI detectors and their ops at full width
+# --------------------------------------------------------------------------
+
+DET3D_YAMLS = {"pointpillars": "kitti_pointpillars", "second": "kitti_second",
+               "voxel_rcnn": "kitti_voxel_rcnn", "pv_rcnn": "kitti_pv_rcnn"}
+# The four KITTI recipes train at their YAMLs' own batch sizes (32, 4, 2, 2).
+DET3D_RECIPES = tuple(sorted(DET3D_YAMLS.values()))
+DET3D_CASES = ((1, 16384), (2, 1024))  # (clouds a request, points a cloud): a scan, the recipes'
+DET3D_NMS_BOXES = 1024  # proposal_pre / nms_pre
+DET3D_FPS_CASES = ((2, 1024, 2048), (1, 16384, 2048))  # PV-RCNN's keypoints: G > N at 1024
+# The card against the same code on the CPU, both fp32 with TF32 off and the
+# choices replayed: every float output within DET3D_REL of the CPU run's
+# largest |value| (at least 1) plus DET3D_REL relative, boxes within
+# DET3D_BOX_ATOL metres; IoUs within DET3D_IOU_TOL; losses within DET3D_REL
+# relative. The sums run
+# in other orders on the two devices (cuDNN and cuBLAS against oneDNN and
+# MKL, atomics in the scatters), a few fp32 roundings a layer. A box corner
+# 64-80 m out carries an fp32 spacing of 7.6e-6 m, and sin / cos round
+# differently on the two devices, so a car's IoU (perimeter over area about
+# 3.5 a metre) moves by about 3e-5 for one unit in the last place of a
+# corner: the card measured 3.08e-5 over 1024 KITTI boxes against a first
+# bound of 1e-5, with the NMS keep set equal.
+DET3D_REL = 1e-4
+DET3D_BOX_ATOL = 1e-3
+DET3D_IOU_TOL = 1e-4
+# The training step's gradients are held against a float64 run on the CPU
+# with the same choices: the card's relative L2 distance from it, for the
+# whole tree and for each leaf, at most DET3D_LEAF_FACTOR times the CPU fp32
+# run's own, or DET3D_LEAF_REL. A leaf's fp32 gradient can stand well off
+# the exact one on either device (the CPU's PV-RCNN roi_0_a/b at 2.1e-3);
+# held against the CPU's fp32 alone, such a leaf says nothing about which
+# side is off. The float64 run caught the card's gradient through cuDNN's
+# FFT convolution at 20 x the CPU's distance (PV-RCNN's sparse stages,
+# 1.4e-3-4.1e-3), gone with the patch-GEMM conv of ``detector3d``. The
+# factor is read off the card: of the leaves at half DET3D_LEAF_REL or
+# more, the furthest stood at 1.02 x the CPU's (PointPillars' vfe/norm_bias,
+# 5.4e-4) and 0.43 x (PV-RCNN's roi_0_a/b, 8.8e-4); larger ratios, up to
+# 106 x on PointPillars' block2 weights, sit at 1.1e-4 or less, a ninth
+# of DET3D_LEAF_REL.
+DET3D_LEAF_FACTOR = 3
+DET3D_LEAF_REL = 1e-3
+
+
+class _ReplayedOn(_Replayed):
+    """A ``_Replayed`` recorded on the CPU and replayed on the card: after
+    ``record()`` call ``to(device)`` to move what it kept. A target the path
+    never called is left out of ``check``."""
+
+    def check(self, what: str) -> None:
+        for name, kept in self.kept.items():
+            if kept and (not self.calls[name] or self.calls[name] % len(kept)):
+                raise AssertionError(f"{what}: {name} replayed {self.calls[name]} times, "
+                                     f"recorded {len(kept)}")
+
+    def to(self, device) -> "_ReplayedOn":
+        from metatransformer_tpu_torch.core.tree import tree_map
+
+        for name, kept in self.kept.items():
+            kept[:] = [tree_map(lambda t: t.to(device) if isinstance(t, torch.Tensor) else t, k)
+                       for k in kept]
+        return self
+
+
+def _det3d_pins(train: bool = False) -> _ReplayedOn:
+    """The 3D detectors' discrete choices: the voxel set, the top-k and NMS
+    keeps, the grid pool's voxels and ball groups' members; training, also
+    the anchor assignment and the RoI sampling. fp32 rounding on either
+    side of a floor, a threshold or a radius flips any of them."""
+    from metatransformer_tpu_torch.models import detector3d, pv_rcnn, voxel_rcnn
+    from metatransformer_tpu_torch.ops import iou3d
+    from metatransformer_tpu_torch.ops import sparse_conv as sp
+
+    targets = [(sp, "voxel_assignment"), (detector3d, "top_scores"), (iou3d, "nms_bev"),
+               (voxel_rcnn, "pool_members"), (pv_rcnn, "ball_members")]
+    if train:
+        targets += [(detector3d, "assign_targets"), (voxel_rcnn, "sample_rois")]
+    return _ReplayedOn(*targets)
+
+
+def _det3d_cfgs() -> dict:
+    """The four KITTI YAMLs' model configs, as ``recipes.py`` builds them."""
+    from metatransformer_tpu_torch import recipes
+    from metatransformer_tpu_torch.configs import load_config
+
+    cfgs = {name: load_config(_recipe_yaml(stem)) for name, stem in DET3D_YAMLS.items()}
+    return {"pointpillars": recipes.pointpillars_config(cfgs["pointpillars"]),
+            "second": recipes.second_config(cfgs["second"]),
+            "voxel_rcnn": recipes.two_stage_config("voxel_rcnn", cfgs["voxel_rcnn"]),
+            "pv_rcnn": recipes.two_stage_config("pv_rcnn", cfgs["pv_rcnn"])}
+
+
+def _det3d_models(seed: int) -> dict:
+    """name -> (cfg, anchors [A, 7] on the CPU, parameters on the card): each
+    model built with no device named."""
+    from metatransformer_tpu_torch.models import detector3d, pv_rcnn, second, voxel_rcnn
+
+    out = {}
+    for name, cfg in _det3d_cfgs().items():
+        mod = {"pointpillars": detector3d, "second": second, "voxel_rcnn": voxel_rcnn,
+               "pv_rcnn": pv_rcnn}[name]
+        params = mod.init(cfg, torch.Generator().manual_seed(seed))  # the card
+        anchors = (detector3d.generate_anchors(cfg) if name == "pointpillars"
+                   else second.generate_anchors(getattr(cfg, "stage1", cfg)))
+        out[name] = (cfg, torch.as_tensor(anchors), params)
+    return out
+
+
+def _det3d_batch(cfg, b: int, n: int, seed: int) -> dict:
+    """The recipes' synthetic KITTI batch (``_det3d_synth``) at ``n`` points
+    a cloud, as CPU tensors."""
+    from metatransformer_tpu_torch import recipes
+
+    s1 = getattr(cfg, "stage1", cfg)
+    pc_range = s1.vfe.voxel.pc_range if hasattr(s1, "vfe") else s1.pc_range
+    batch = next(iter(recipes._det3d_synth(pc_range, s1.num_classes, n)(b, 1, seed)))["input"]
+    return {k: torch.as_tensor(v) for k, v in batch.items()}
+
+
+def _det3d_fns(name: str, cfg, anchors):
+    """(forward, predict, loss) of one model: forward -> a dict of its
+    outputs, predict -> a dict of [B, ...] tensors, loss -> (total, logs)."""
+    from metatransformer_tpu_torch.models import detector3d, pv_rcnn, second, voxel_rcnn
+
+    def stacked(dets):
+        return {k: torch.stack([d[k] for d in dets]) for k in dets[0]}
+
+    if name in ("pointpillars", "second"):
+        mod = detector3d if name == "pointpillars" else second
+
+        def forward(p, pts):
+            return mod.forward(p, pts, cfg)
+
+        def predict(p, pts):
+            return stacked(detector3d.predict(mod.forward(p, pts, cfg), anchors.to(pts.device),
+                                              cfg))
+
+        def loss(p, x):
+            labels = x["gt_labels"] if name == "pointpillars" else None
+            return detector3d.detection_loss(mod.forward(p, x["points"], cfg),
+                                             anchors.to(x["points"].device), x["gt_boxes"],
+                                             x["gt_valid"], cfg, gt_labels=labels)
+    else:
+        mod = voxel_rcnn if name == "voxel_rcnn" else pv_rcnn
+
+        def forward(p, pts):
+            if name == "voxel_rcnn":
+                preds, _, bev = voxel_rcnn.forward_stage1(p, pts, cfg)
+                return {**preds, "bev": bev}
+            preds, keypoints, weighted, logits = pv_rcnn.forward(p, pts, cfg)
+            return {**preds, "keypoints": keypoints, "weighted": weighted, "point_logits": logits}
+
+        def predict(p, pts):
+            return stacked(mod.predict(p, pts, anchors.to(pts.device), cfg))
+
+        def loss(p, x):
+            return mod.training_loss(p, x["points"], x["gt_boxes"], x["gt_valid"],
+                                     anchors.to(x["points"].device), cfg)
+    return forward, predict, loss
+
+
+def _det3d_close(what: str, got: dict, want: dict) -> dict:
+    """The card's outputs against the CPU's: integers and flags equal,
+    floats at the DET3D bounds. Returns the worst error of each key."""
+    errs = {}
+    for key, ref in want.items():
+        out = got[key].cpu()
+        if out.shape != ref.shape or not torch.isfinite(out.float()).all():
+            raise AssertionError(f"{what} {key}: {tuple(out.shape)} against {tuple(ref.shape)}, "
+                                 f"finite {bool(torch.isfinite(out.float()).all())}")
+        if not ref.is_floating_point():
+            if not torch.equal(out, ref):
+                raise AssertionError(f"{what} {key}: {int((out != ref).sum())} of {ref.numel()} "
+                                     "differ from the CPU")
+            errs[key] = 0.0
+            continue
+        atol = DET3D_BOX_ATOL if key == "boxes" else DET3D_REL * max(1.0, ref.abs().max().item())
+        errs[key] = (out - ref).abs().max().item()
+        torch.testing.assert_close(out, ref, atol=atol, rtol=DET3D_REL,
+                                   msg=lambda m, key=key: f"{what} {key}: {m}")
+    return errs
+
+
+def _det3d_held(what: str, fn, params, cpu_params, x, expected: dict, dev) -> dict:
+    """``fn(params, x)`` on the CPU recording the choices, then on the card
+    replaying them (launches held to ``expected`` exactly); every output
+    against the CPU's. Returns the card run's launches."""
+    from metatransformer_tpu_torch import ops
+
+    pins = _det3d_pins()
+    with torch.no_grad():
+        with pins.record():
+            want = fn(cpu_params, x)
+        pins.to(dev)
+        ops.reset_launch_counts()
+        with pins.replay():
+            got = fn(params, x.to(dev))
+        torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    pins.check(what)
+    ran = {k: v for k, v in launches.items() if v}
+    if ran != expected:
+        raise AssertionError(f"{what}: launches {ran}, expected {expected}")
+    errs = _det3d_close(what, got, want)
+    print(f"{what}: " + ", ".join(f"{k} {tuple(want[k].shape)} {errs[k]:.3g}" for k in want)
+          + f" (max |card - CPU|; launches {ran})", flush=True)
+    return launches
+
+
+def _det3d_ops(seed: int, dev) -> None:
+    """(a) The ops at KITTI scale on the card against the CPU: one scan of
+    DET3D_CASES[0] points voxelised into the SECOND grid (max_voxels 16000,
+    (41, 1600, 1408) at 0.05 x 0.05 x 0.1 m), a submanifold, a strided and an
+    inverse conv on it (the active sets equal, features at DET3D_REL), and
+    the rotated IoU and NMS of DET3D_NMS_BOXES boxes (IoUs at DET3D_IOU_TOL,
+    the keep set equal)."""
+    from metatransformer_tpu_torch.ops import iou3d
+    from metatransformer_tpu_torch.ops import sparse_conv as sp
+
+    cfg = _det3d_cfgs()["second"]
+    pts = _det3d_batch(cfg, 1, DET3D_CASES[0][1], seed)["points"]
+    g = torch.Generator().manual_seed(seed)
+    w1 = torch.randn(3, 3, 3, 4, 16, generator=g) * 0.2
+    w2 = torch.randn(3, 3, 3, 16, 32, generator=g) * 0.1
+    w3 = torch.randn(3, 3, 3, 32, 16, generator=g) * 0.1
+
+    def convs(points, dv):
+        mask = torch.ones(points.shape[:2], dtype=torch.bool, device=dv)
+        st = sp.voxelize_points(points, mask, cfg.voxel_size, cfg.pc_range, cfg.spatial_shape,
+                                cfg.max_voxels)
+        subm = sp.subm_conv3d(st, w1.to(dv))
+        down = sp.sparse_conv3d(subm, w2.to(dv), (2, 2, 2), (1, 1, 1))
+        up = sp.inverse_sparse_conv3d(down, subm, w3.to(dv), (2, 2, 2), (1, 1, 1))
+        return {name: t for name, t in (("voxels", st), ("subm", subm), ("strided", down),
+                                         ("inverse", up))}
+
+    with torch.no_grad():
+        want, got = convs(pts, "cpu"), convs(pts.to(dev), dev)
+    for name, ref in want.items():
+        out = got[name]
+        same = (torch.equal(out.valid.cpu(), ref.valid)
+                and torch.equal(out.coords.cpu()[ref.valid], ref.coords[ref.valid]))
+        err = (out.features.cpu() - ref.features).abs().max().item()
+        bound = DET3D_REL * max(1.0, ref.features.abs().max().item())
+        print(f"det3d ops {name} ({DET3D_CASES[0][1]} points, {int(ref.valid.sum())} of "
+              f"{ref.capacity} rows active, {ref.spatial_shape}): active set equal {same}, "
+              f"features max |card - CPU| {err:.3g} (tol {bound:.3g})", flush=True)
+        if not same or err > bound:
+            raise AssertionError(f"det3d ops {name}: the card disagrees with the CPU")
+
+    rng = np.random.default_rng(seed)
+    ctr = rng.uniform([0, -40, -2], [70, 40, 0], (64, 3))[rng.integers(0, 64, DET3D_NMS_BOXES)]
+    boxes = np.concatenate([ctr + rng.normal(0, 0.6, ctr.shape),
+                            rng.uniform([3.2, 1.4, 1.4], [4.6, 1.9, 1.8], (DET3D_NMS_BOXES, 3)),
+                            rng.uniform(-np.pi, np.pi, (DET3D_NMS_BOXES, 1))], -1)
+    boxes = torch.tensor(boxes, dtype=torch.float32)
+    scores = torch.rand(DET3D_NMS_BOXES, generator=g)
+    iou = iou3d.boxes_iou3d(boxes, boxes)
+    iou_card = iou3d.boxes_iou3d(boxes.to(dev), boxes.to(dev)).cpu()
+    err = (iou_card - iou).abs().max().item()
+    want = iou3d.nms_bev(boxes, scores, 0.1, 128)
+    got = [t.cpu() for t in iou3d.nms_bev(boxes.to(dev), scores.to(dev), 0.1, 128)]
+    same = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    print(f"det3d ops rotated IoU {DET3D_NMS_BOXES} x {DET3D_NMS_BOXES}: max |card - CPU| "
+          f"{err:.3g} (tol {DET3D_IOU_TOL}), {int((iou > 0).sum())} overlapping pairs; NMS at "
+          f"0.1 to 128: keep set equal {same}, {int(want[1].sum())} kept", flush=True)
+    if err > DET3D_IOU_TOL or not same:
+        raise AssertionError("det3d ops: rotated IoU or NMS differs from the CPU")
+
+
+def _det3d_step(name, fns, params, cpu_params, x, dev) -> dict:
+    """(d) One backward of the training loss on the card against the CPU:
+    the choices recorded by the CPU's fp32 run and replayed by a float64 run
+    on the CPU and by the card's. The loss within DET3D_REL of the CPU's;
+    the gradient tree and each leaf within the DET3D_LEAF bounds of the
+    float64 gradient (see there); the relative L2 to the CPU's fp32
+    gradient printed beside. Peak memory of the card's step. Returns the
+    card's launches."""
+    from metatransformer_tpu_torch import ops
+    from metatransformer_tpu_torch.core.tree import leaves_with_path, tree_map
+
+    pins = _det3d_pins(train=True)
+
+    def step(tree_params, batch):
+        tree = tree_map(lambda t: t.detach().clone().requires_grad_(t.is_floating_point()),
+                        tree_params)
+        loss, _ = fns[2](tree, batch)
+        loss.backward()
+        return loss.item(), [(p, leaf.grad) for p, leaf in leaves_with_path(tree)]
+
+    def f64(t):
+        return t.double() if t.is_floating_point() else t
+
+    with pins.record():
+        ref_loss, ref_grads = step(cpu_params, x)
+    with pins.replay():
+        loss64, grads64 = step(tree_map(f64, cpu_params), tree_map(f64, x))
+    pins.check(f"det3d {name} step, float64 on the CPU")
+    pins.to(dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    with pins.replay():
+        loss, grads = step(params, {k: v.to(dev) for k, v in x.items()})
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    pins.check(f"det3d {name} step")
+    expected = {"fps": 1} if name == "pv_rcnn" else {}
+    if {k: v for k, v in launches.items() if v} != expected:
+        raise AssertionError(f"det3d {name} step: launches {launches}, expected {expected}")
+
+    def rel(a, b):
+        return ((a - b).norm() / b.norm()).item() if b.norm() > 0 else float((a - b).norm() > 0)
+
+    def flat(gs, like):
+        return [torch.zeros(r.numel(), dtype=torch.float64) if t is None
+                else t.cpu().double().flatten() for (_, t), (_, r) in zip(gs, like)]
+
+    card_all, cpu_all, f64_all = (flat(g, ref_grads) for g in (grads, ref_grads, grads64))
+    leaves = [("the whole tree", torch.cat(card_all), torch.cat(cpu_all), torch.cat(f64_all))] + [
+        ("/".join(map(str, p)), g, r, e)
+        for (p, _), g, r, e in zip(grads, card_all, cpu_all, f64_all)]
+    worst, ratios, failed = ("", 0.0, 0.0), [], []
+    for leaf, g, ref, g64 in leaves:
+        card, cpu = rel(g, g64), rel(ref, g64)
+        if not card <= max(DET3D_LEAF_FACTOR * cpu, DET3D_LEAF_REL):
+            failed.append(f"{leaf} {card:.3g} (CPU fp32 {cpu:.3g})")
+        if leaf != "the whole tree" and card > worst[1]:
+            worst = (leaf, card, cpu)
+        if cpu > 0:
+            ratios.append((card / cpu, leaf, card, cpu))
+    ratios.sort(reverse=True)
+    tree = leaves[0]
+    print(f"det3d {name} step b={x['points'].shape[0]}: loss {loss:.6f} against the CPU's "
+          f"{ref_loss:.6f} (float64 {loss64:.6f}); gradient relative L2 from float64: the tree "
+          f"card {rel(tree[1], tree[3]):.3g}, CPU fp32 {rel(tree[2], tree[3]):.3g}; the leaf "
+          f"furthest {worst[0]}: card {worst[1]:.3g}, CPU fp32 {worst[2]:.3g} (max "
+          f"{DET3D_LEAF_FACTOR} x the CPU's or {DET3D_LEAF_REL}); the largest card / CPU ratios "
+          f"{'; '.join(f'{lf} {q:.3g} ({c:.3g} / {u:.3g})' for q, lf, c, u in ratios[:3])}; "
+          f"card to CPU fp32 "
+          f"{rel(tree[1], tree[2]):.3g}; peak memory {peak:.3f} GiB; launches "
+          f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+    if abs(loss - ref_loss) > DET3D_REL * max(1.0, abs(ref_loss)) or failed:
+        raise AssertionError(f"det3d {name} step differs from the CPU: {failed}")
+    return launches
+
+
+def phase_det3d(seed: int, dev, profile: bool = False) -> dict:
+    """3D detection at the KITTI YAMLs' full width (seeded weights, fp32),
+    through the port's entry points with no device named: (a) the ops at
+    KITTI scale against the CPU (``_det3d_ops``); (b) ``forward`` and
+    ``predict`` of PointPillars, SECOND, Voxel R-CNN and PV-RCNN at each of
+    DET3D_CASES against the same code on the CPU, the choices recorded there
+    and replayed (``_det3d_pins``); PV-RCNN launches #7 once a forward, the
+    others nothing; (c) #7 at PV-RCNN's shapes (DET3D_FPS_CASES) index for
+    index against its plain version; (d) one backward of each training loss
+    at b = 2 against the CPU (``_det3d_step``); (e) the forwards, predicts
+    and the NMS loop timed at each case (median of DET_TIMING_REPS), and
+    under ``profile`` their device time by kernel, idle share and the NMS
+    loop's share of each predict. Returns the launches by path."""
+    from metatransformer_tpu_torch.core.tree import leaves, tree_map
+    from metatransformer_tpu_torch.ops import iou3d
+
+    t0 = time.perf_counter()
+    smi = _smi()
+    _det3d_ops(seed, dev)
+    models = _det3d_models(seed)
+    launches, times = {}, {}
+    for name, (cfg, anchors, params) in models.items():
+        if leaves(params)[0].device.type != dev.type:
+            raise AssertionError(f"det3d {name}: the parameters did not land on the card")
+        cpu_params = tree_map(lambda t: t.cpu(), params)
+        fns = _det3d_fns(name, cfg, anchors)
+        expected = {"fps": 1} if name == "pv_rcnn" else {}
+        counts = []
+        for b, n in DET3D_CASES:
+            pts = _det3d_batch(cfg, b, n, seed + b)["points"]
+            for kind, fn in (("forward", fns[0]), ("predict", fns[1])):
+                counts.append(_det3d_held(f"det3d {name} {kind} b={b} N={n}", fn, params,
+                                          cpu_params, pts, expected, dev))
+        launches[f"det3d_{name}"] = {k: sum(c[k] for c in counts) for k in counts[0]}
+        x = _det3d_batch(cfg, *DET3D_CASES[1], seed + 7)
+        launches[f"det3d_{name}_step"] = _det3d_step(name, fns, params, cpu_params, x, dev)
+
+        nms_args = []
+        nms = iou3d.nms_bev
+        with torch.no_grad():
+            for b, n in DET3D_CASES:
+                pts = _det3d_batch(cfg, b, n, seed + b)["points"].to(dev)
+                with mock.patch.object(iou3d, "nms_bev",
+                                       lambda *a, **k: nms_args.append((a, k)) or nms(*a, **k)):
+                    fns[1](params, pts)
+                calls = list(nms_args)
+                nms_args.clear()
+                fwd = _median_ms(lambda: fns[0](params, pts), DET_TIMING_REPS)
+                pred = _median_ms(lambda: fns[1](params, pts), DET_TIMING_REPS)
+                loop = sum(_median_ms(lambda a=a, k=k: nms(*a, **k), DET_TIMING_REPS)
+                           for a, k in calls)
+                times[f"{name} b={b}"] = {"forward": fwd, "predict": pred, "nms": loop}
+                shapes = [(*a[0].shape[:-1], a[3]) for a, _ in calls]
+                print(f"det3d {name} b={b} N={n} ({smi}): forward {fwd:.4f} ms, predict "
+                      f"{pred:.4f} ms, of which the NMS loops {loop:.4f} ms "
+                      f"({100 * loop / pred:.2f}%; calls [B, boxes, max_out] {shapes}); median of "
+                      f"{DET_TIMING_REPS}", flush=True)
+                if profile:
+                    busy = _profile_step(lambda: fns[1](params, pts),
+                                         f"det3d {name} predict b={b} N={n}", top=12)
+                    nms_busy = sum(_profile_step(lambda a=a, k=k: nms(*a, **k),
+                                                 f"det3d {name} NMS loop {i} b={b}", top=4)
+                                   for i, (a, k) in enumerate(calls))
+                    print(f"det3d {name} predict b={b}: the NMS loops {100 * nms_busy / busy:.2f}% "
+                          f"of its device busy time", flush=True)
+        del params, cpu_params
+        torch.cuda.empty_cache()
+
+    from metatransformer_tpu_torch.ops import point_ops as po
+
+    for b, n, g in DET3D_FPS_CASES:
+        pts = _det3d_batch(models["pv_rcnn"][0], b, n, seed + 11)["points"][..., :3]
+        pts = pts.contiguous().to(dev)
+        _check_fps(f"PV-RCNN keypoints B={b} N={n} G={g}", pts, g)
+        with torch.no_grad():
+            ms = _loop_ms(lambda: po.fps_cuda(pts, g))
+            plain = _median_ms(lambda: po.furthest_point_sample_plain(pts, g), 3)
+        bound = _fps_bound(b, n, g)
+        times[f"fps B={b} N={n} G={g}"] = {"kernel": ms, "plain": plain, "bound": bound["bound_ms"]}
+        print(f"fps PV-RCNN keypoints B={b} N={n} G={g} ({smi}): {ms:.4f} ms a launch (loop of "
+              f"{TIMING_REPS}), plain version {plain:.4f} ms, bound {bound['bound_ms']:.4f} ms "
+              f"({bound['bound_by']})", flush=True)
+    del models
+    torch.cuda.empty_cache()
+    print(f"det3d times (ms, median of {DET_TIMING_REPS}, {smi}): "
+          + json.dumps({k: {kk: round(vv, 4) for kk, vv in v.items()} for k, v in times.items()}),
+          flush=True)
+    print(f"phase_det3d: {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches
+
+
+# --------------------------------------------------------------------------
 # The training entry point: every ported recipe YAML through train_cli
 # --------------------------------------------------------------------------
 
@@ -3786,6 +4242,11 @@ RECIPE_KERNELS = {
     "imagenet_large_metatransformer": FUSED_PATH,  # ViT-L14, T = 257
     "imagenet_metatransformer": FUSED_PATH,  # T = 197
     "indianpines_caf_metatransformer": FUSED_PATH,  # T = 201
+    # the KITTI detectors run no encoder; PV-RCNN takes its keypoints by FPS
+    "kitti_pointpillars": (),
+    "kitti_pv_rcnn": ("fps",),  # 2048 keypoints from 1024 points a cloud
+    "kitti_second": (),
+    "kitti_voxel_rcnn": (),
     "indianpines_hyper_metatransformer": FUSED_PATH,  # T = 201
     "kinetics400_metatransformer": FLASH_PATH,  # T = 1568, accum_steps 2
     "kinetics400_videomae_pretrain": FLASH_PATH,  # fp32: decoder T = 1568
@@ -3954,7 +4415,7 @@ def _recipe_batch(stem: str) -> int:
     from metatransformer_tpu_torch.configs import load_config
 
     yaml_batch = load_config(_recipe_yaml(stem)).train.batch_size
-    if stem == RECIPE_FLAGSHIP:
+    if stem == RECIPE_FLAGSHIP or stem in DET3D_RECIPES:
         return yaml_batch
     return min(yaml_batch, DENSE_RECIPE_BATCH if stem in DENSE_RECIPES + DETECTION_RECIPES
                else RECIPE_BATCH)
@@ -4068,7 +4529,7 @@ def _recipe_argv(stem: str, seed: int) -> list:
 
 
 def _recipe_reps(stem: str) -> int:
-    return DET_TIMING_REPS if stem in DETECTION_RECIPES else TIMING_REPS
+    return DET_TIMING_REPS if stem in DETECTION_RECIPES + DET3D_RECIPES else TIMING_REPS
 
 
 def phase_family_recipes(stems, what: str, seed: int, dev, profile: bool = False) -> None:
@@ -4094,6 +4555,60 @@ def phase_family_recipes(stems, what: str, seed: int, dev, profile: bool = False
         torch.cuda.empty_cache()
     print(f"{what} recipe step times (ms, median of {_recipe_reps(stems[0])}, {_smi()}): "
           + json.dumps({k: round(v, 4) for k, v in times.items()}), flush=True)
+
+
+def _train_recipe(stem: str, seed: int, dev, profile: bool, shapes: set, extra=()) -> tuple:
+    """``train_cli.main`` on one recipe YAML as a user runs it (its launches
+    held to RECIPE_KERNELS, the shape of each kernel call added to
+    ``shapes``, a finite final loss), then its step timed as
+    ``train_cli.setup`` builds it, with its peak memory. Returns (launches,
+    ms)."""
+    import gc
+
+    from metatransformer_tpu_torch import ops, train_cli
+
+    batch = _recipe_batch(stem)
+    argv = _recipe_argv(stem, seed) + list(extra)
+    print(f"recipe {stem}: train_cli {' '.join(argv)}", flush=True)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with _recording_shapes(shapes):
+        text = _cli(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    loss = _final_loss(text, stem)
+    ran = {k for k, v in counts.items() if v}
+    if ran != set(RECIPE_KERNELS[stem]):
+        raise AssertionError(f"recipe {stem}: launched {sorted(ran)}, expected "
+                             f"{sorted(RECIPE_KERNELS[stem])}")
+    print(f"recipe {stem}: batch {batch}, final loss {loss:.4f}, {wall:.2f} s in "
+          f"train_cli.main (build, steps, validation); launches {counts}", flush=True)
+    session = train_cli.setup(_recipe_argv(stem, seed))
+    ms = _time_step(
+        f"recipe {stem} step", session.trainer, next(iter(session.train_batches())),
+        "samples", torch.Generator(device=dev).manual_seed(seed),
+        f"recipe {stem} step b={batch}" if profile else None, size=batch, top=6,
+        reps=_recipe_reps(stem))
+    del session
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, ms
+
+
+def phase_det3d_recipes(seed: int, dev, profile: bool = False) -> dict:
+    """``--det3d`` only: the four KITTI recipes through ``train_cli`` at full
+    width and their own batch sizes, as ``phase_recipes`` trains them, and
+    #7 held against its plain version at the shapes they gave it. Returns
+    the launches by path."""
+    launches, times, shapes = {}, {}, set()
+    for stem in DET3D_RECIPES:
+        launches[f"recipes_{stem}"], times[stem] = _train_recipe(stem, seed, dev, profile, shapes)
+    _hold_shapes(shapes, seed, dev)
+    print(f"det3d recipe step times (ms, median of {DET_TIMING_REPS}, {_smi()}): "
+          + json.dumps({k: round(v, 4) for k, v in times.items()}), flush=True)
+    return launches
 
 
 def phase_recipes(seed: int, dev, profile: bool = False) -> tuple:
@@ -4125,35 +4640,9 @@ def phase_recipes(seed: int, dev, profile: bool = False) -> tuple:
     # modelnet40 trains with a --work-dir that --eval and --eval-all then read
     with tempfile.TemporaryDirectory() as work:
         for stem in ported:
-            batch = _recipe_batch(stem)
-            argv = _recipe_argv(stem, seed)
-            if stem == RECIPE_FLAGSHIP:
-                argv += ["--work-dir", f"{work}/{stem}"]
-            print(f"recipe {stem}: train_cli {' '.join(argv)}", flush=True)
-            torch.cuda.synchronize()
-            ops.reset_launch_counts()
-            t0 = time.perf_counter()
-            with _recording_shapes(shapes):
-                text = _cli(argv)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            counts = launches[f"recipes_{stem}"] = ops.launch_counts()
-            loss = _final_loss(text, stem)
-            ran = {k for k, v in counts.items() if v}
-            if ran != set(RECIPE_KERNELS[stem]):
-                raise AssertionError(f"recipe {stem}: launched {sorted(ran)}, expected "
-                                     f"{sorted(RECIPE_KERNELS[stem])}")
-            print(f"recipe {stem}: batch {batch}, final loss {loss:.4f}, {wall:.2f} s in "
-                  f"train_cli.main (build, steps, validation); launches {counts}", flush=True)
-            session = train_cli.setup(_recipe_argv(stem, seed))
-            times[stem] = _time_step(
-                f"recipe {stem} step", session.trainer, next(iter(session.train_batches())),
-                "samples", torch.Generator(device=dev).manual_seed(seed),
-                f"recipe {stem} step b={batch}" if profile else None, size=batch, top=6,
-                reps=_recipe_reps(stem))
-            del session
-            gc.collect()
-            torch.cuda.empty_cache()
+            extra = ["--work-dir", f"{work}/{stem}"] if stem == RECIPE_FLAGSHIP else []
+            launches[f"recipes_{stem}"], times[stem] = _train_recipe(stem, seed, dev, profile,
+                                                                     shapes, extra)
 
         flagship = ["--cfg", _recipe_yaml(RECIPE_FLAGSHIP), "--steps-per-epoch", str(RECIPE_STEPS),
                     f"train.batch_size={_recipe_batch(RECIPE_FLAGSHIP)}", f"seed={seed}",
@@ -4236,6 +4725,10 @@ def main() -> None:
                     help="only build and run phase_detection, then hold and time the four COCO "
                          "detection recipes (DETECTION_RECIPES) as phase_recipes does; prints "
                          "no result")
+    ap.add_argument("--det3d", action="store_true",
+                    help="only build and run phase_det3d, then train the four KITTI recipes "
+                         "(DET3D_RECIPES) through train_cli as phase_recipes does; prints no "
+                         "result")
     ap.add_argument("--recipes", action="store_true",
                     help="only build and train every ported recipe YAML through train_cli "
                          "at full width (phase_recipes); prints no result")
@@ -4268,6 +4761,10 @@ def main() -> None:
     if args.detection:
         phase_detection(args.seed, dev, args.profile)
         phase_family_recipes(DETECTION_RECIPES, "detection", args.seed, dev, args.profile)
+        return
+    if args.det3d:
+        phase_det3d(args.seed, dev, args.profile)
+        phase_det3d_recipes(args.seed, dev, args.profile)
         return
     errs = phase_kernels(args.seed, dev)
     phase_autograd(args.seed, dev)
@@ -4314,6 +4811,7 @@ def main() -> None:
     phase_demo(args.seed)
     dense_launches = phase_dense(args.seed, dev, args.profile)
     detection_launches = phase_detection(args.seed, dev, args.profile)
+    det3d_launches = phase_det3d(args.seed, dev, args.profile)
     recipe_launches, recipe_errs = phase_recipes(args.seed, dev, args.profile)
     for name, err in recipe_errs.items():
         errs[name] = max(errs[name], err)
@@ -4344,6 +4842,7 @@ def main() -> None:
         **graph_launches,
         **dense_launches,
         **detection_launches,
+        **det3d_launches,
         **recipe_launches,
     }
     on_path = {  # the kernels each path must have gone through
@@ -4382,6 +4881,10 @@ def main() -> None:
         **{f"detection_{path}": ("flash_fwd",)
            for path in ("common", "mask_rcnn", "cascade", "htc")},
         "detection_step": FLASH_KERNELS,
+        # no 3D detector runs the encoder; PV-RCNN takes its keypoints by FPS
+        # (phase_det3d asserts that the others launched nothing)
+        **{f"det3d_{name}{part}": ("fps",) if name == "pv_rcnn" else ()
+           for name in DET3D_YAMLS for part in ("", "_step")},
         **{f"recipes_{stem}": kinds for stem, kinds in RECIPE_KERNELS.items()},
         "recipes_imagenet_data": FUSED_KERNELS,
     }

@@ -74,7 +74,7 @@ def max_pool_same(x, k: int = 3, stride: int = 2):
 def group_norm(x, scale, bias, groups=32, eps=1e-5):
     b, h, w, c = x.shape
     g = min(groups, c)
-    xg = x.reshape(b, h, w, g, c // g).float()
+    xg = x.reshape(b, h, w, g, c // g).to(torch.promote_types(x.dtype, torch.float32))
     var, mean = torch.var_mean(xg, dim=(1, 2, 4), keepdim=True, correction=0)
     xg = (xg - mean) * torch.rsqrt(var + eps)
     return (xg.reshape(b, h, w, c) * scale + bias).to(x.dtype)

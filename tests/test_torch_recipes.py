@@ -11,8 +11,10 @@ ported recipe YAML at --smoke geometry on the CPU:
 - ``loss_fn`` matches at 1e-5 on fixed arrays.
 
 The four COCO detection recipes are held in
-tests/test_torch_detection_recipes.py. The 23 YAMLs of families the port
-does not have raise NotImplementedError naming their ROADMAP item.
+tests/test_torch_detection_recipes.py, the four KITTI ones (PointPillars,
+SECOND, Voxel R-CNN, PV-RCNN) in tests/test_torch_det3d_recipes.py. The 19
+YAMLs of families the port does not have raise NotImplementedError naming
+their ROADMAP item.
 """
 
 import functools
@@ -61,9 +63,8 @@ UNPORTED = {
     **{name: "item 9" for name in (
         "kitti_caddn.yaml",
         "kitti_centerpoint.yaml", "kitti_iassd.yaml", "kitti_part_a2.yaml",
-        "kitti_point_rcnn.yaml", "kitti_pointpillars.yaml", "kitti_pv_rcnn.yaml",
-        "kitti_pv_rcnn_pp.yaml", "kitti_second.yaml", "kitti_second_iou.yaml",
-        "kitti_voxel_rcnn.yaml", "mdf_waymo_nusc_second.yaml", "nuscenes_centerpoint.yaml",
+        "kitti_point_rcnn.yaml", "kitti_pv_rcnn_pp.yaml", "kitti_second_iou.yaml",
+        "mdf_waymo_nusc_second.yaml", "nuscenes_centerpoint.yaml",
         "waymo_centerpoint.yaml", "modelnet40_curvenet.yaml", "modelnet40_pointnext.yaml",
         "scanobjectnn_simpleview.yaml", "s3dis_baafnet.yaml", "s3dis_pointtransformer.yaml",
         "s3dis_randlanet.yaml", "s3dis_stratified.yaml", "semantickitti_randlanet.yaml",
@@ -73,6 +74,9 @@ UNPORTED = {
 DETECTION = ("coco_cascade_rcnn_metatransformer.yaml", "coco_htcpp_metatransformer.yaml",
              "coco_mask_rcnn_metatransformer.yaml",
              "coco_upgraded_mask_rcnn_metatransformer.yaml")
+# the KITTI detection recipes, held in tests/test_torch_det3d_recipes.py
+DET3D = ("kitti_pointpillars.yaml", "kitti_pv_rcnn.yaml", "kitti_second.yaml",
+         "kitti_voxel_rcnn.yaml")
 MAE = ("kinetics400_videomae_pretrain.yaml", "modelnet40_pointmae_pretrain.yaml")
 MASK2FORMER = ("ade20k_mask2former_metatransformer.yaml", "coco_mask2former_metatransformer.yaml")
 GRAPH = ("pcqm4mv2_tokengt.yaml", "pcqm4mv2_tokengt_performer.yaml")
@@ -105,8 +109,8 @@ def test_the_ported_list_is_exact():
     """Every shipped recipe is either ported or named unported: exact
     counts, so a new YAML or a newly ported family shows here."""
     every = sorted(n for n in os.listdir(CONFIG_DIR) if n.endswith(".yaml") and n != "default.yaml")
-    assert len(PORTED) == 28 and len(DETECTION) == 4 and len(UNPORTED) == 23
-    assert sorted(PORTED + list(DETECTION) + list(UNPORTED)) == every
+    assert len(PORTED) == 28 and len(DETECTION) == len(DET3D) == 4 and len(UNPORTED) == 19
+    assert sorted(PORTED + list(DETECTION) + list(DET3D) + list(UNPORTED)) == every
 
 
 @pytest.mark.parametrize("name", PORTED)

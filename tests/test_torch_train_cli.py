@@ -14,7 +14,7 @@ import torch
 from metatransformer_tpu_torch import train_cli
 from metatransformer_tpu_torch.configs import CONFIG_DIR
 
-from tests.test_torch_recipes import DETECTION, PORTED, UNPORTED
+from tests.test_torch_recipes import DET3D, DETECTION, PORTED, UNPORTED
 
 torch.set_num_threads(1)
 
@@ -25,13 +25,13 @@ def _cfg(name):
     return os.path.join(CONFIG_DIR, name)
 
 
-SWEEP = PORTED + list(DETECTION)
+SWEEP = PORTED + list(DETECTION) + list(DET3D)
 
 
 def test_the_sweep_covers_every_ported_recipe():
     """Exact count, as test_no_orphan_yamls: a recipe newly ported (or a
     YAML added) must join the sweep."""
-    assert len(SWEEP) == 32 and len(SWEEP) + len(UNPORTED) == 55
+    assert len(SWEEP) == 36 and len(SWEEP) + len(UNPORTED) == 55
 
 
 @pytest.mark.parametrize("name", SWEEP)
