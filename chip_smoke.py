@@ -11,8 +11,10 @@ payloads), the graph predictor, the demo CLI, the dense-prediction family
 (ViT-Adapter with UperNet, test-time augmentation, windowed blocks and
 Mask2Former at 512^2), 2D detection (Mask R-CNN, Cascade R-CNN and HTC++
 over the ViT-Adapter at 1024^2), KITTI 3D detection (PointPillars, SECOND,
-Voxel R-CNN and PV-RCNN) and every ported training recipe through
-``train_cli`` on one NVIDIA GPU through the hand-written kernels.
+Voxel R-CNN, PV-RCNN, SECOND-IoU, Part-A2 and PV-RCNN++), the
+point-classification zoo (13 families of ``utils/registry.MODELS``) and
+every ported training recipe through ``train_cli`` on one NVIDIA GPU
+through the hand-written kernels.
 
     python3 chip_smoke.py [--seed N] [--profile]
     python3 chip_smoke.py --bwd-times      # only the flash backward and video-step times
@@ -23,11 +25,13 @@ Voxel R-CNN and PV-RCNN) and every ported training recipe through
     python3 chip_smoke.py --dense          # only phase_dense and the dense recipes' holds and steps
     python3 chip_smoke.py --detection      # only phase_detection and the COCO recipes' holds and steps
     python3 chip_smoke.py --det3d          # only phase_det3d and the KITTI recipes through train_cli
+    python3 chip_smoke.py --point-zoo      # only phase_point_zoo and the zoo recipes' steps
 
 Phases (any failed check raises, so the process exits non-zero):
 
-1. device: require a CUDA card, print its name and power limit, turn TF32
-   off for fp32 matmuls and convolutions;
+1. device: require a CUDA card, print its name and power limit, hold that
+   ``core.device.resolve`` turns TF32 off for fp32 matmuls and
+   convolutions where it hands out the card, and turn both off;
 2. build the kernels from ``metatransformer_tpu_torch/ops/csrc`` and print
    the registers and spills of the wgmma and FPS kernels;
 3. hold each kernel against its plain PyTorch version, computed in fp32
@@ -148,21 +152,42 @@ Phases (any failed check raises, so the process exits non-zero):
     (41, 1600, 1408) grid, a submanifold, strided and inverse sparse conv:
     active sets equal, features at 1e-4 of their scale; the rotated IoU and
     NMS of 1024 boxes: keep set equal); ``forward`` and ``predict`` of
-    PointPillars, SECOND, Voxel R-CNN and PV-RCNN at b = 1 on 16,384 points
-    and b = 2 on 1,024 against the same code on the CPU, the voxel set,
-    top-k, NMS keeps, grid-pool voxels and ball-group members recorded there
-    and replayed (``_det3d_pins``); PV-RCNN one launch of #7 a forward, the
-    others none; one backward of each loss at b = 2 against the CPU (its
-    assignments and RoI sampling replayed too); #7 at PV-RCNN's
-    (2, 1024, 2048) and (1, 16384, 2048) against its plain version; the
-    forwards, predicts and NMS loops timed at both cases, median of 10
-    (``--profile``: each predict's and NMS loop's device time by kernel);
-13d. the training entry point: ``train_cli.main`` as a user runs it (no
-    ``--device``, no ``--smoke``: the card, full width) on each of the 36
+    PointPillars, SECOND, Voxel R-CNN, PV-RCNN, SECOND-IoU, Part-A2 and
+    PV-RCNN++ at b = 1 on 16,384 points (PV-RCNN and PV-RCNN++, which
+    sample by FPS, also at b = 2 on 1,024 points, more samples than points;
+    ``--det3d``: every model at both), against the same code on the CPU,
+    the voxel set, top-k,
+    NMS keeps, grid-pool voxels, ball-group members, PV-RCNN++'s sector sets
+    and VectorPool members recorded there and replayed (``_det3d_pins``);
+    #7 launched once a PV-RCNN forward and 6 times (a sector each) a
+    PV-RCNN++ forward, the others none; one backward of each loss at b = 2
+    against the CPU (its assignments, RoI sampling and Part-A2's part
+    targets replayed too); #7 at PV-RCNN's (2, 1024, 2048) and
+    (1, 16384, 2048) and PV-RCNN++'s (2, 1024, 682) and (1, 16384, 682)
+    against its plain version; ``--det3d`` also times the forwards,
+    predicts and NMS loops, median of 10, #7 at those shapes, and Part-A2's
+    three 1x1 heads on cuDNN beside one matmul each (``--profile``: each
+    predict's and NMS loop's device time by kernel);
+13d. the point-classification zoo at its default widths (fp32): each of
+    the 13 families' forward at b = 8 on 1,024 points against a float64 run
+    of the same code on the CPU (the two ViTs: its fp32 run), the kNN and
+    ball-query members, CurveNet's walk and curve starts and SimpleView's
+    splat pixels recorded there and replayed (``_zoo_pins``), #7 launched
+    as each family samples (``ZOO_FPS``), the encoder route of PointViT and
+    ViTGraph printed; one backward of the cross-entropy of CurveNet,
+    PointNeXt and SimpleView at b = 8 against the CPU and float64 at the 3D
+    steps' bounds, the max-pool winners and ReLU gates replayed too (their
+    recipes train at 32 in 13e); each forward timed (``--point-zoo`` also
+    holds the steps at two more seeds and at b = 32, trains the three zoo
+    recipes through ``train_cli`` and times SimpleView's 3x3 convs on the
+    patch GEMM and on cuDNN);
+13e. the training entry point: ``train_cli.main`` as a user runs it (no
+    ``--device``, no ``--smoke``: the card, full width) on each of the 42
     ported recipe YAMLs of ``metatransformer_tpu/configs/``, 1 epoch of 2
-    steps at ``train.batch_size=min(yaml, 8)`` (modelnet40 at its own 32,
-    the three dense and the four COCO detection recipes at 2, the four
-    KITTI recipes at their own 32, 4, 2 and 2; ViT-B16);
+    steps at ``train.batch_size=min(yaml, 8)`` (modelnet40 and the three
+    zoo recipes at their own 32, the three dense and the four COCO
+    detection recipes at 2, the seven KITTI recipes at their own 32, 4, 2,
+    2, 4, 2 and 2; ViT-B16);
     each recipe's launches counted under ``recipes_<stem>`` and held to the
     kernels its T resolves to, a finite final loss, its step timed as
     ``train_cli.setup`` builds it (median of 20, the detection recipes of
@@ -391,9 +416,17 @@ def phase_device() -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA card: chip_smoke.py runs only on a GPU")
     print(_smi(), flush=True)  # name, power limit: as nvidia-smi gives them
+    from metatransformer_tpu_torch.core import device as _device
+
+    # the entry points' fp32 policy: resolving the card turns TF32 off
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    if _device.resolve(None).type != "cuda" or (torch.backends.cuda.matmul.allow_tf32
+                                                 or torch.backends.cudnn.allow_tf32):
+        raise AssertionError("core.device.resolve left TF32 on")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    print("tf32: off for fp32 matmuls and cuDNN convolutions", flush=True)
+    print("tf32: off for fp32 matmuls and cuDNN convolutions (core.device.resolve turns both "
+          "off where it hands out the card)", flush=True)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
 
 
@@ -3771,12 +3804,23 @@ def phase_detection(seed: int, dev, profile: bool = False) -> dict:
 # --------------------------------------------------------------------------
 
 DET3D_YAMLS = {"pointpillars": "kitti_pointpillars", "second": "kitti_second",
-               "voxel_rcnn": "kitti_voxel_rcnn", "pv_rcnn": "kitti_pv_rcnn"}
-# The four KITTI recipes train at their YAMLs' own batch sizes (32, 4, 2, 2).
+               "voxel_rcnn": "kitti_voxel_rcnn", "pv_rcnn": "kitti_pv_rcnn",
+               "second_iou": "kitti_second_iou", "part_a2": "kitti_part_a2",
+               "pv_rcnn_pp": "kitti_pv_rcnn_pp"}
+# The seven KITTI recipes train at their YAMLs' own batch sizes (32, 4, 2, 2,
+# 4, 2, 2).
 DET3D_RECIPES = tuple(sorted(DET3D_YAMLS.values()))
 DET3D_CASES = ((1, 16384), (2, 1024))  # (clouds a request, points a cloud): a scan, the recipes'
+# FPS launches a forward: PV-RCNN's keypoints; PV-RCNN++'s, one a sector
+DET3D_FPS = {"pv_rcnn": 1, "pv_rcnn_pp": 6}
+# The default run holds every model on the scan, and the two that sample by
+# FPS also at (2, 1024), where they ask for more samples than a cloud has
+# points; --det3d holds and times every model at both cases.
+DET3D_SMOKE_CASES = {name: DET3D_CASES if name in DET3D_FPS else DET3D_CASES[:1]
+                     for name in DET3D_YAMLS}
 DET3D_NMS_BOXES = 1024  # proposal_pre / nms_pre
-DET3D_FPS_CASES = ((2, 1024, 2048), (1, 16384, 2048))  # PV-RCNN's keypoints: G > N at 1024
+# PV-RCNN's keypoints (G > N at 1024), then PV-RCNN++'s, 682 a sector
+DET3D_FPS_CASES = ((2, 1024, 2048), (1, 16384, 2048), (2, 1024, 682), (1, 16384, 682))
 # The card against the same code on the CPU, both fp32 with TF32 off and the
 # choices replayed: every float output within DET3D_REL of the CPU run's
 # largest |value| (at least 1) plus DET3D_REL relative, boxes within
@@ -3832,41 +3876,48 @@ class _ReplayedOn(_Replayed):
 
 def _det3d_pins(train: bool = False) -> _ReplayedOn:
     """The 3D detectors' discrete choices: the voxel set, the top-k and NMS
-    keeps, the grid pool's voxels and ball groups' members; training, also
-    the anchor assignment and the RoI sampling. fp32 rounding on either
-    side of a floor, a threshold or a radius flips any of them."""
+    keeps, the grid pool's voxels, the ball groups' members, PV-RCNN++'s
+    sector sets and VectorPool members; training, also the anchor
+    assignment, the RoI sampling and Part-A2's part targets. fp32 rounding
+    on either side of a floor, a threshold or a radius flips any of them."""
     from metatransformer_tpu_torch.models import detector3d, pv_rcnn, voxel_rcnn
     from metatransformer_tpu_torch.ops import iou3d
     from metatransformer_tpu_torch.ops import sparse_conv as sp
 
+    from metatransformer_tpu_torch.models import part_a2, pv_rcnn_pp
+
     targets = [(sp, "voxel_assignment"), (detector3d, "top_scores"), (iou3d, "nms_bev"),
-               (voxel_rcnn, "pool_members"), (pv_rcnn, "ball_members")]
+               (voxel_rcnn, "pool_members"), (pv_rcnn, "ball_members"),
+               (pv_rcnn_pp, "spc_keep"), (pv_rcnn_pp, "vector_pool_members")]
     if train:
-        targets += [(detector3d, "assign_targets"), (voxel_rcnn, "sample_rois")]
+        targets += [(detector3d, "assign_targets"), (voxel_rcnn, "sample_rois"),
+                    (part_a2, "part_targets")]
     return _ReplayedOn(*targets)
 
 
 def _det3d_cfgs() -> dict:
-    """The four KITTI YAMLs' model configs, as ``recipes.py`` builds them."""
+    """The seven KITTI YAMLs' model configs, as ``recipes.py`` builds them."""
     from metatransformer_tpu_torch import recipes
     from metatransformer_tpu_torch.configs import load_config
 
     cfgs = {name: load_config(_recipe_yaml(stem)) for name, stem in DET3D_YAMLS.items()}
     return {"pointpillars": recipes.pointpillars_config(cfgs["pointpillars"]),
             "second": recipes.second_config(cfgs["second"]),
-            "voxel_rcnn": recipes.two_stage_config("voxel_rcnn", cfgs["voxel_rcnn"]),
-            "pv_rcnn": recipes.two_stage_config("pv_rcnn", cfgs["pv_rcnn"])}
+            **{name: recipes.two_stage_config(name, cfgs[name])
+               for name in DET3D_YAMLS if name not in ("pointpillars", "second")}}
 
 
 def _det3d_models(seed: int) -> dict:
     """name -> (cfg, anchors [A, 7] on the CPU, parameters on the card): each
     model built with no device named."""
-    from metatransformer_tpu_torch.models import detector3d, pv_rcnn, second, voxel_rcnn
+    import importlib
+
+    from metatransformer_tpu_torch.models import detector3d, second
 
     out = {}
     for name, cfg in _det3d_cfgs().items():
-        mod = {"pointpillars": detector3d, "second": second, "voxel_rcnn": voxel_rcnn,
-               "pv_rcnn": pv_rcnn}[name]
+        mod = detector3d if name == "pointpillars" else importlib.import_module(
+            f"metatransformer_tpu_torch.models.{name}")
         params = mod.init(cfg, torch.Generator().manual_seed(seed))  # the card
         anchors = (detector3d.generate_anchors(cfg) if name == "pointpillars"
                    else second.generate_anchors(getattr(cfg, "stage1", cfg)))
@@ -3888,6 +3939,8 @@ def _det3d_batch(cfg, b: int, n: int, seed: int) -> dict:
 def _det3d_fns(name: str, cfg, anchors):
     """(forward, predict, loss) of one model: forward -> a dict of its
     outputs, predict -> a dict of [B, ...] tensors, loss -> (total, logs)."""
+    import importlib
+
     from metatransformer_tpu_torch.models import detector3d, pv_rcnn, second, voxel_rcnn
 
     def stacked(dets):
@@ -3909,12 +3962,25 @@ def _det3d_fns(name: str, cfg, anchors):
                                              anchors.to(x["points"].device), x["gt_boxes"],
                                              x["gt_valid"], cfg, gt_labels=labels)
     else:
-        mod = voxel_rcnn if name == "voxel_rcnn" else pv_rcnn
+        mod = importlib.import_module(f"metatransformer_tpu_torch.models.{name}")
 
         def forward(p, pts):
-            if name == "voxel_rcnn":
-                preds, _, bev = voxel_rcnn.forward_stage1(p, pts, cfg)
+            if name in ("voxel_rcnn", "second_iou"):
+                vcfg = mod.as_voxel_rcnn(cfg) if name == "second_iou" else cfg
+                preds, _, bev = voxel_rcnn.forward_stage1(p, pts, vcfg)
                 return {**preds, "bev": bev}
+            if name == "part_a2":
+                preds, dec, seg, part = mod.forward(p, pts, cfg)
+                return {**preds, "decoder": dec.features, "seg": seg, "part": part}
+            if name == "pv_rcnn_pp":  # stage 1, the proposals and everything on them
+                mask = torch.ones(pts.shape[:2], dtype=torch.bool, device=pts.device)
+                vcfg = mod.as_voxel_rcnn(cfg)
+                preds, ms, bev = voxel_rcnn.forward_stage1(p, pts, vcfg, mask)
+                rois, _, valid = voxel_rcnn.propose(preds, anchors.to(pts.device), vcfg)
+                kp, weighted, logits, rcnn_cls, rcnn_reg = mod._rcnn(p, pts, mask, ms, bev, rois,
+                                                                     valid, cfg)
+                return {**preds, "rois": rois, "keypoints": kp, "weighted": weighted,
+                        "point_logits": logits, "rcnn_cls": rcnn_cls, "rcnn_reg": rcnn_reg}
             preds, keypoints, weighted, logits = pv_rcnn.forward(p, pts, cfg)
             return {**preds, "keypoints": keypoints, "weighted": weighted, "point_logits": logits}
 
@@ -3949,29 +4015,37 @@ def _det3d_close(what: str, got: dict, want: dict) -> dict:
     return errs
 
 
-def _det3d_held(what: str, fn, params, cpu_params, x, expected: dict, dev) -> dict:
-    """``fn(params, x)`` on the CPU recording the choices, then on the card
-    replaying them (launches held to ``expected`` exactly); every output
-    against the CPU's. Returns the card run's launches."""
+def _replayed_on_card(what: str, fn, params, x, expected: dict, dev, pins: _ReplayedOn):
+    """``fn(params, x)`` on the card replaying ``pins`` (recorded on the
+    CPU), the launches held to ``expected`` exactly. Returns (the outputs,
+    the launches)."""
     from metatransformer_tpu_torch import ops
 
-    pins = _det3d_pins()
-    with torch.no_grad():
-        with pins.record():
-            want = fn(cpu_params, x)
-        pins.to(dev)
-        ops.reset_launch_counts()
-        with pins.replay():
-            got = fn(params, x.to(dev))
-        torch.cuda.synchronize()
+    pins.to(dev)
+    ops.reset_launch_counts()
+    with torch.no_grad(), pins.replay():
+        got = fn(params, x.to(dev))
+    torch.cuda.synchronize()
     launches = ops.launch_counts()
     pins.check(what)
     ran = {k: v for k, v in launches.items() if v}
     if ran != expected:
         raise AssertionError(f"{what}: launches {ran}, expected {expected}")
+    return got, launches
+
+
+def _det3d_held(what: str, fn, params, cpu_params, x, expected: dict, dev) -> dict:
+    """``fn(params, x)`` on the CPU recording the choices, then on the card
+    replaying them (launches held to ``expected`` exactly); every output
+    against the CPU's. Returns the card run's launches."""
+    pins = _det3d_pins()
+    with torch.no_grad(), pins.record():
+        want = fn(cpu_params, x)
+    got, launches = _replayed_on_card(what, fn, params, x, expected, dev, pins)
     errs = _det3d_close(what, got, want)
     print(f"{what}: " + ", ".join(f"{k} {tuple(want[k].shape)} {errs[k]:.3g}" for k in want)
-          + f" (max |card - CPU|; launches {ran})", flush=True)
+          + f" (max |card - CPU|; launches { {k: v for k, v in launches.items() if v} })",
+          flush=True)
     return launches
 
 
@@ -4036,23 +4110,26 @@ def _det3d_ops(seed: int, dev) -> None:
         raise AssertionError("det3d ops: rotated IoU or NMS differs from the CPU")
 
 
-def _det3d_step(name, fns, params, cpu_params, x, dev) -> dict:
-    """(d) One backward of the training loss on the card against the CPU:
-    the choices recorded by the CPU's fp32 run and replayed by a float64 run
-    on the CPU and by the card's. The loss within DET3D_REL of the CPU's;
-    the gradient tree and each leaf within the DET3D_LEAF bounds of the
-    float64 gradient (see there); the relative L2 to the CPU's fp32
-    gradient printed beside. Peak memory of the card's step. Returns the
-    card's launches."""
+def _grads_held(label: str, loss_fn, params, cpu_params, x: dict, dev, pins: _ReplayedOn,
+                expected: dict, zero_leaf: float = 0.0) -> dict:
+    """One backward of ``loss_fn(params, x) -> (loss, logs)`` on the card
+    against the CPU: the choices recorded by the CPU's fp32 run and replayed
+    by a float64 run on the CPU and by the card's (launches held to
+    ``expected``). The loss within DET3D_REL of the CPU's; the gradient tree
+    and each leaf within max(DET3D_LEAF_FACTOR x the CPU fp32 run's relative
+    L2 distance from float64, DET3D_LEAF_REL) of the float64 gradient; the
+    relative L2 to the CPU's fp32 gradient printed beside. A leaf whose
+    float64 gradient is below ``zero_leaf`` of the tree's (by norm) is zero
+    up to rounding and held by size instead: at most 10 x ``zero_leaf`` of
+    the tree on the card. Peak memory of the card's step. Returns the card's
+    launches."""
     from metatransformer_tpu_torch import ops
     from metatransformer_tpu_torch.core.tree import leaves_with_path, tree_map
-
-    pins = _det3d_pins(train=True)
 
     def step(tree_params, batch):
         tree = tree_map(lambda t: t.detach().clone().requires_grad_(t.is_floating_point()),
                         tree_params)
-        loss, _ = fns[2](tree, batch)
+        loss, _ = loss_fn(tree, batch)
         loss.backward()
         return loss.item(), [(p, leaf.grad) for p, leaf in leaves_with_path(tree)]
 
@@ -4063,7 +4140,7 @@ def _det3d_step(name, fns, params, cpu_params, x, dev) -> dict:
         ref_loss, ref_grads = step(cpu_params, x)
     with pins.replay():
         loss64, grads64 = step(tree_map(f64, cpu_params), tree_map(f64, x))
-    pins.check(f"det3d {name} step, float64 on the CPU")
+    pins.check(f"{label} step, float64 on the CPU")
     pins.to(dev)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -4073,10 +4150,9 @@ def _det3d_step(name, fns, params, cpu_params, x, dev) -> dict:
     torch.cuda.synchronize()
     launches = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
-    pins.check(f"det3d {name} step")
-    expected = {"fps": 1} if name == "pv_rcnn" else {}
+    pins.check(f"{label} step")
     if {k: v for k, v in launches.items() if v} != expected:
-        raise AssertionError(f"det3d {name} step: launches {launches}, expected {expected}")
+        raise AssertionError(f"{label} step: launches {launches}, expected {expected}")
 
     def rel(a, b):
         return ((a - b).norm() / b.norm()).item() if b.norm() > 0 else float((a - b).norm() > 0)
@@ -4089,8 +4165,14 @@ def _det3d_step(name, fns, params, cpu_params, x, dev) -> dict:
     leaves = [("the whole tree", torch.cat(card_all), torch.cat(cpu_all), torch.cat(f64_all))] + [
         ("/".join(map(str, p)), g, r, e)
         for (p, _), g, r, e in zip(grads, card_all, cpu_all, f64_all)]
-    worst, ratios, failed = ("", 0.0, 0.0), [], []
+    worst, ratios, failed, zero = ("", 0.0, 0.0), [], [], []
+    tree_norm = leaves[0][3].norm().item()
     for leaf, g, ref, g64 in leaves:
+        if g64.norm() < zero_leaf * tree_norm:  # a zero gradient up to rounding
+            zero.append(leaf)
+            if not g.norm() <= 10 * zero_leaf * tree_norm:
+                failed.append(f"{leaf}: |card| {g.norm():.3g} against a zero gradient")
+            continue
         card, cpu = rel(g, g64), rel(ref, g64)
         if not card <= max(DET3D_LEAF_FACTOR * cpu, DET3D_LEAF_REL):
             failed.append(f"{leaf} {card:.3g} (CPU fp32 {cpu:.3g})")
@@ -4100,33 +4182,90 @@ def _det3d_step(name, fns, params, cpu_params, x, dev) -> dict:
             ratios.append((card / cpu, leaf, card, cpu))
     ratios.sort(reverse=True)
     tree = leaves[0]
-    print(f"det3d {name} step b={x['points'].shape[0]}: loss {loss:.6f} against the CPU's "
+    print(f"{label} step b={x['points'].shape[0]}: loss {loss:.6f} against the CPU's "
           f"{ref_loss:.6f} (float64 {loss64:.6f}); gradient relative L2 from float64: the tree "
           f"card {rel(tree[1], tree[3]):.3g}, CPU fp32 {rel(tree[2], tree[3]):.3g}; the leaf "
           f"furthest {worst[0]}: card {worst[1]:.3g}, CPU fp32 {worst[2]:.3g} (max "
           f"{DET3D_LEAF_FACTOR} x the CPU's or {DET3D_LEAF_REL}); the largest card / CPU ratios "
           f"{'; '.join(f'{lf} {q:.3g} ({c:.3g} / {u:.3g})' for q, lf, c, u in ratios[:3])}; "
-          f"card to CPU fp32 "
-          f"{rel(tree[1], tree[2]):.3g}; peak memory {peak:.3f} GiB; launches "
+          f"card to CPU fp32 {rel(tree[1], tree[2]):.3g}; "
+          + (f"{len(zero)} leaves of zero gradient up to rounding {zero[:4]}; " if zero_leaf
+             else "")
+          + f"peak memory {peak:.3f} GiB; launches "
           f"{ {k: v for k, v in launches.items() if v} }", flush=True)
     if abs(loss - ref_loss) > DET3D_REL * max(1.0, abs(ref_loss)) or failed:
-        raise AssertionError(f"det3d {name} step differs from the CPU: {failed}")
+        raise AssertionError(f"{label} step differs from the CPU: {failed}")
     return launches
 
 
-def phase_det3d(seed: int, dev, profile: bool = False) -> dict:
+def _det3d_step(name, fns, params, cpu_params, x, dev) -> dict:
+    """(d) One backward of the training loss on the card against the CPU
+    and float64 (``_grads_held``), the choices of ``_det3d_pins(train=True)``
+    replayed. Returns the card's launches."""
+    expected = {"fps": DET3D_FPS[name]} if name in DET3D_FPS else {}
+    return _grads_held(f"det3d {name}", fns[2], params, cpu_params, x, dev,
+                       _det3d_pins(train=True), expected)
+
+
+def _part_a2_head_times(params, cfg, dev, smi: str) -> dict:
+    """Part-A2's three 1x1 stage-1 heads (``detector3d.anchor_head``, on
+    cuDNN through ``vit_adapter.conv2d``) on its BEV map (200 x 176 x 512 at
+    KITTI width) at b = 1 and 2, forward and forward + backward, beside the
+    same products as one matmul over the channel axis each; median of
+    DET_TIMING_REPS, both fp32 with TF32 off."""
+    from metatransformer_tpu_torch.models import detector3d
+
+    s1, p1 = cfg.stage1, params["stage1"]
+    heads = [(p1[f"{k}_w"], p1[f"{k}_b"]) for k in ("cls", "box", "dir")]
+
+    def as_matmul(feat):
+        return [feat @ w[0, 0] + b for w, b in heads]
+
+    def on_cudnn(feat):
+        return list(detector3d.anchor_head(p1, feat, s1).values())
+
+    times = {}
+    g = torch.Generator(device=dev).manual_seed(3)
+    for b in (1, 2):
+        h, w = s1.bev_hw
+        feat = torch.randn(b, h, w, cfg.stage1.up_channels * len(s1.bev_channels),
+                           generator=g, device=dev).requires_grad_(True)
+        row = {}
+        for label, fn in (("cudnn", on_cudnn), ("matmul", as_matmul), ("matmul_again", as_matmul),
+                          ("cudnn_again", on_cudnn)):
+            with torch.no_grad():
+                row[f"{label}_forward"] = _median_ms(lambda: fn(feat), DET_TIMING_REPS)
+            row[f"{label}_fwd_bwd"] = _median_ms(
+                lambda: torch.autograd.grad(sum(o.sum() for o in fn(feat)), feat),
+                DET_TIMING_REPS)
+        with torch.no_grad():
+            err = max((a.reshape(b, -1) - c.reshape(b, -1)).abs().max().item()
+                      for a, c in zip(on_cudnn(feat), as_matmul(feat)))
+        times[f"part_a2 heads b={b}"] = row
+        print(f"det3d part_a2 1x1 heads b={b} on [{b}, {h}, {w}, {feat.shape[-1]}] ({smi}): "
+              + ", ".join(f"{k} {v:.4f} ms" for k, v in row.items())
+              + f" (median of {DET_TIMING_REPS}, in turns); cuDNN against the matmul max "
+              f"|diff| {err:.3g}", flush=True)
+    return times
+
+
+def phase_det3d(seed: int, dev, profile: bool = False, full: bool = True) -> dict:
     """3D detection at the KITTI YAMLs' full width (seeded weights, fp32),
     through the port's entry points with no device named: (a) the ops at
     KITTI scale against the CPU (``_det3d_ops``); (b) ``forward`` and
-    ``predict`` of PointPillars, SECOND, Voxel R-CNN and PV-RCNN at each of
-    DET3D_CASES against the same code on the CPU, the choices recorded there
-    and replayed (``_det3d_pins``); PV-RCNN launches #7 once a forward, the
-    others nothing; (c) #7 at PV-RCNN's shapes (DET3D_FPS_CASES) index for
-    index against its plain version; (d) one backward of each training loss
-    at b = 2 against the CPU (``_det3d_step``); (e) the forwards, predicts
-    and the NMS loop timed at each case (median of DET_TIMING_REPS), and
-    under ``profile`` their device time by kernel, idle share and the NMS
-    loop's share of each predict. Returns the launches by path."""
+    ``predict`` of PointPillars, SECOND, Voxel R-CNN, PV-RCNN, SECOND-IoU,
+    Part-A2 and PV-RCNN++ at each of DET3D_CASES against the same code on
+    the CPU, the choices recorded there and replayed (``_det3d_pins``);
+    PV-RCNN launches #7 once a forward, PV-RCNN++ once a sector (6), the
+    others nothing (DET3D_FPS); (c) #7 at both models' shapes
+    (DET3D_FPS_CASES) index for index against its plain version; (d) one
+    backward of each training loss at b = 2 against the CPU
+    (``_det3d_step``); (e) the forwards, predicts and the NMS loop timed at
+    each case (median of DET_TIMING_REPS), and under ``profile`` their
+    device time by kernel, idle share and the NMS loop's share of each
+    predict. Without ``full`` (the default run; ``--det3d`` is full) (b)
+    runs at DET3D_SMOKE_CASES and (c) and (e) take no times. Returns the
+    launches by path."""
     from metatransformer_tpu_torch.core.tree import leaves, tree_map
     from metatransformer_tpu_torch.ops import iou3d
 
@@ -4136,13 +4275,15 @@ def phase_det3d(seed: int, dev, profile: bool = False) -> dict:
     models = _det3d_models(seed)
     launches, times = {}, {}
     for name, (cfg, anchors, params) in models.items():
+        t_model = time.perf_counter()
         if leaves(params)[0].device.type != dev.type:
             raise AssertionError(f"det3d {name}: the parameters did not land on the card")
         cpu_params = tree_map(lambda t: t.cpu(), params)
         fns = _det3d_fns(name, cfg, anchors)
-        expected = {"fps": 1} if name == "pv_rcnn" else {}
+        expected = {"fps": DET3D_FPS[name]} if name in DET3D_FPS else {}
         counts = []
-        for b, n in DET3D_CASES:
+        cases = DET3D_CASES if full else DET3D_SMOKE_CASES[name]
+        for b, n in cases:
             pts = _det3d_batch(cfg, b, n, seed + b)["points"]
             for kind, fn in (("forward", fns[0]), ("predict", fns[1])):
                 counts.append(_det3d_held(f"det3d {name} {kind} b={b} N={n}", fn, params,
@@ -4154,7 +4295,7 @@ def phase_det3d(seed: int, dev, profile: bool = False) -> dict:
         nms_args = []
         nms = iou3d.nms_bev
         with torch.no_grad():
-            for b, n in DET3D_CASES:
+            for b, n in cases if full else ():
                 pts = _det3d_batch(cfg, b, n, seed + b)["points"].to(dev)
                 with mock.patch.object(iou3d, "nms_bev",
                                        lambda *a, **k: nms_args.append((a, k)) or nms(*a, **k)):
@@ -4179,6 +4320,9 @@ def phase_det3d(seed: int, dev, profile: bool = False) -> dict:
                                    for i, (a, k) in enumerate(calls))
                     print(f"det3d {name} predict b={b}: the NMS loops {100 * nms_busy / busy:.2f}% "
                           f"of its device busy time", flush=True)
+        if name == "part_a2" and full:
+            times.update(_part_a2_head_times(params, cfg, dev, smi))
+        print(f"det3d {name}: {time.perf_counter() - t_model:.1f} s", flush=True)
         del params, cpu_params
         torch.cuda.empty_cache()
 
@@ -4187,13 +4331,15 @@ def phase_det3d(seed: int, dev, profile: bool = False) -> dict:
     for b, n, g in DET3D_FPS_CASES:
         pts = _det3d_batch(models["pv_rcnn"][0], b, n, seed + 11)["points"][..., :3]
         pts = pts.contiguous().to(dev)
-        _check_fps(f"PV-RCNN keypoints B={b} N={n} G={g}", pts, g)
+        _check_fps(f"PV-RCNN(++) keypoints B={b} N={n} G={g}", pts, g)
+        if not full:
+            continue
         with torch.no_grad():
             ms = _loop_ms(lambda: po.fps_cuda(pts, g))
             plain = _median_ms(lambda: po.furthest_point_sample_plain(pts, g), 3)
         bound = _fps_bound(b, n, g)
         times[f"fps B={b} N={n} G={g}"] = {"kernel": ms, "plain": plain, "bound": bound["bound_ms"]}
-        print(f"fps PV-RCNN keypoints B={b} N={n} G={g} ({smi}): {ms:.4f} ms a launch (loop of "
+        print(f"fps PV-RCNN(++) keypoints B={b} N={n} G={g} ({smi}): {ms:.4f} ms a launch (loop of "
               f"{TIMING_REPS}), plain version {plain:.4f} ms, bound {bound['bound_ms']:.4f} ms "
               f"({bound['bound_by']})", flush=True)
     del models
@@ -4202,6 +4348,250 @@ def phase_det3d(seed: int, dev, profile: bool = False) -> dict:
           + json.dumps({k: {kk: round(vv, 4) for kk, vv in v.items()} for k, v in times.items()}),
           flush=True)
     print(f"phase_det3d: {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches
+
+
+# --------------------------------------------------------------------------
+# The point-classification zoo
+# --------------------------------------------------------------------------
+
+ZOO_FAMILIES = ("PointNet2Encoder", "DGCNN", "PointMLP", "PointNeXt", "PointNetEncoder", "PCT",
+                "PointViT", "DeepGCN", "BallDGCNN", "GroupPointNet", "ViTGraph", "CurveNet",
+                "SimpleView")
+ZOO_CASE = (8, 1024)  # clouds a request, points a cloud (ModelNet40's 1024)
+# FPS launches a forward at the default (full) configs on 1024 points; the
+# other families launch nothing
+ZOO_FPS = {"PointNet2Encoder": 2, "PointMLP": 4, "PointNeXt": 4, "PCT": 2, "PointViT": 1,
+           "GroupPointNet": 1, "ViTGraph": 1, "CurveNet": 3}
+# the families whose encoder computes in fp32 only (core/encoder.encode):
+# held against the CPU's fp32 run, the others against a float64 one
+ZOO_FP32_ONLY = ("PointViT", "ViTGraph")
+# the zoo's recipe YAMLs and their family
+ZOO_RECIPES = {"modelnet40_curvenet": "CurveNet", "modelnet40_pointnext": "PointNeXt",
+               "scanobjectnn_simpleview": "SimpleView"}
+# (seed offset, clouds) of the zoo's held steps: the default run holds one
+# at b = 8, as the forwards; --point-zoo three seeds at 8 and one at the
+# YAMLs' own 32, whose float64 CPU reference takes about 80 s of the three
+# families' (so the default run leaves it out; the gradients pass the same
+# code at either batch, and the YAMLs train at 32 in phase_recipes)
+ZOO_STEPS = ((0, 8),)
+ZOO_STEPS_FULL = ((0, 8), (1, 8), (2, 8), (0, 32))
+# A leaf whose float64 gradient is below ZOO_ZERO_LEAF of the whole tree's
+# (by norm) has a zero gradient up to rounding: a bias ahead of a train-mode
+# BatchNorm, which takes out any per-channel constant (SimpleView's fc1/b
+# ahead of its MVFC norm). Its relative distance is rounding over rounding;
+# it is held by size (``_grads_held`` ``zero_leaf``).
+ZOO_ZERO_LEAF = 1e-6
+
+
+def _zoo_pins(train: bool = False) -> _ReplayedOn:
+    """The zoo's discrete choices: the kNN and ball-query members (feature-
+    space kNN in DGCNN, DeepGCN and PCT: near-ties), CurveNet's curve starts
+    and walk steps, SimpleView's splat pixels; training, also where each
+    max-pool's maximum sits and on which side of 0 each ReLU's input falls
+    (``point_baselines.max_winners`` and ``act_gate``: a few of millions
+    flip between fp32 and float64 or between two devices, and each moves a
+    BatchNorm channel's gradient; with them free, PointNeXt's fp32 gradient
+    at b = 8 stood 0.51% (CPU) and 0.78% (card) from float64). FPS runs on
+    the input coordinates, the same on both devices, and its kernel is
+    index-exact."""
+    from metatransformer_tpu_torch.models import curvenet, simpleview
+    from metatransformer_tpu_torch.models import point_baselines as pb
+    from metatransformer_tpu_torch.ops import point_ops as po
+
+    targets = [(po, "knn"), (po, "ball_query"), (curvenet, "curve_starts"),
+               (curvenet, "walk_choice"), (simpleview, "view_pixels")]
+    if train:
+        targets += [(pb, "max_winners"), (pb, "act_gate")]
+    return _ReplayedOn(*targets)
+
+
+def _zoo_held(what: str, fn, params, cpu_params, x, expected: dict, dev, f64: bool) -> dict:
+    """A zoo forward ``fn(params, x) -> {"logits": ...}`` on the CPU
+    recording ``_zoo_pins()``, then on the card replaying them. With
+    ``f64`` also replayed in float64 on the CPU, and the card's logits held
+    within DET3D_LEAF_FACTOR times the CPU fp32 run's distance from it, or
+    the DET3D bounds (PCT's offset attention is ill-conditioned in fp32:
+    1.5e-3 of its logits from float64 on either device); else against the
+    CPU's fp32 at the DET3D bounds. Returns the card run's launches."""
+    from metatransformer_tpu_torch.core.tree import tree_map
+
+    pins = _zoo_pins()
+    with torch.no_grad():
+        with pins.record():
+            want = fn(cpu_params, x)
+        if f64:
+            with pins.replay():
+                exact = fn(tree_map(lambda t: t.double() if t.is_floating_point() else t,
+                                    cpu_params), x.double())
+            pins.check(f"{what}, float64 on the CPU")
+    got, launches = _replayed_on_card(what, fn, params, x, expected, dev, pins)
+    ran = {k: v for k, v in launches.items() if v}
+    if not f64:
+        errs = _det3d_close(what, got, want)
+        print(f"{what}: " + ", ".join(f"{k} {tuple(want[k].shape)} {errs[k]:.3g}" for k in want)
+              + f" (max |card - CPU|; launches {ran})", flush=True)
+        return launches
+    rows = []
+    for key, ref in exact.items():
+        out, cpu = got[key].cpu().double(), want[key].double()
+        if out.shape != ref.shape or not torch.isfinite(out).all():
+            raise AssertionError(f"{what} {key}: {tuple(out.shape)} against {tuple(ref.shape)}")
+        card_err, cpu_err = (out - ref).abs().max().item(), (cpu - ref).abs().max().item()
+        bound = max(DET3D_LEAF_FACTOR * cpu_err, DET3D_REL * max(1.0, ref.abs().max().item()))
+        rows.append(f"{key} {tuple(ref.shape)} card {card_err:.3g}, CPU fp32 {cpu_err:.3g} "
+                    f"(max {bound:.3g})")
+        if card_err > bound:
+            raise AssertionError(f"{what} {key}: {card_err:.3g} from float64 against the CPU "
+                                 f"fp32's {cpu_err:.3g}")
+    print(f"{what}: " + ", ".join(rows) + f" (max |x - float64|; launches {ran})", flush=True)
+    return launches
+
+
+def _zoo_step(name: str, entry, cfg, params, cpu_params, x: dict, dev, seed: int) -> dict:
+    """One backward of a zoo classifier's cross-entropy on the card against
+    the CPU and float64 (``_grads_held``), the choices of
+    ``_zoo_pins(train=True)`` replayed. Returns the card's launches."""
+    def loss(p, batch):
+        return F.cross_entropy(entry.forward(p, batch["points"], cfg), batch["label"]), {}
+
+    expected = {"fps": ZOO_FPS[name]} if name in ZOO_FPS else {}
+    return _grads_held(f"zoo {name} (seed {seed})", loss, params, cpu_params, x, dev, _zoo_pins(train=True),
+                       expected, zero_leaf=ZOO_ZERO_LEAF)
+
+
+def _simpleview_conv_times(seed: int, dev, smi: str) -> dict:
+    """SimpleView's 3x3 convs on cuDNN (``vit_adapter.conv2d``, the model's
+    route) against the patch GEMM of ``detector3d.conv3x3_gemm``, in turns:
+    the scanobjectnn_simpleview step at its batch (32: 192 depth images of
+    128^2) and its forward, with the logits' distance between the two
+    routes."""
+    import contextlib
+
+    from metatransformer_tpu_torch import train_cli
+    from metatransformer_tpu_torch.models import detector3d
+    from metatransformer_tpu_torch.models import simpleview as sv
+    from metatransformer_tpu_torch.models.vit_adapter import conv2d
+
+    def patch_gemm(x, w, b=None, stride=1):
+        return detector3d.conv3x3_gemm(x, w, stride) if w.shape[0] == 3 else conv2d(
+            x, w, b, stride=stride)
+
+    session = train_cli.setup(_recipe_argv("scanobjectnn_simpleview", seed))
+    batch = next(iter(session.train_batches()))
+    pts = torch.as_tensor(batch["input"]).to(dev)
+    cfg = sv.SimpleViewConfig(num_classes=15)
+    params = session.trainer.trainable
+    on_gemm = mock.patch.object(sv, "conv2d", patch_gemm)
+    times, logits = {}, {}
+    for label, ctx in (("cudnn", contextlib.nullcontext), ("patch_gemm", lambda: on_gemm),
+                       ("patch_gemm_again", lambda: on_gemm),
+                       ("cudnn_again", contextlib.nullcontext)):
+        with ctx():
+            times[f"{label}_step"] = _time_step(
+                f"scanobjectnn_simpleview step, 3x3 convs on {label}", session.trainer, batch,
+                "clouds", torch.Generator(device=dev).manual_seed(seed), size=len(pts),
+                reps=DET_TIMING_REPS)
+            with torch.no_grad():
+                times[f"{label}_forward"] = _median_ms(lambda: sv.forward(params, pts, cfg),
+                                                       DET_TIMING_REPS)
+                logits[label] = sv.forward(params, pts, cfg)
+    err = (logits["patch_gemm"] - logits["cudnn"]).abs().max().item()
+    print(f"simpleview 3x3 convs at b={len(pts)} ({smi}): "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in times.items())
+          + f" (median of {DET_TIMING_REPS}, in turns); logits max |patch GEMM - cuDNN| "
+          f"{err:.3g}", flush=True)
+    del session
+    torch.cuda.empty_cache()
+    return times
+
+
+def phase_point_zoo(seed: int, dev, profile: bool = False, full: bool = True) -> dict:
+    """The point-classification zoo at its default (full) widths, fp32,
+    through the registry (``utils/registry.MODELS``) with no device named:
+    (a) each of the 13 families' forward at ZOO_CASE against the same code
+    on the CPU (``_zoo_held``: float64, the two ViTs, whose encoder is fp32
+    only, fp32), the choices of ``_zoo_pins`` recorded on the CPU and
+    replayed; #7 launched ZOO_FPS times a forward, nothing else; the encoder
+    route of PointViT and ViTGraph (T = 257, FP32) printed; each forward
+    timed (median of TIMING_REPS; ``profile``: by kernel, the idle share);
+    (b) one backward of the cross-entropy of the three recipe families
+    (CurveNet, PointNeXt, SimpleView) against the CPU and float64
+    (``_zoo_step``) at ZOO_STEPS, with ``full`` at ZOO_STEPS_FULL; (c) with
+    ``full`` (``--point-zoo``; the default run trains them in
+    ``phase_recipes``): the three zoo recipes through ``train_cli`` at their
+    own batch, #7 held at the shapes they gave it, and SimpleView's 3x3
+    convs timed on the patch GEMM and on cuDNN (``_simpleview_conv_times``).
+    Returns the launches by path."""
+    from metatransformer_tpu_torch.core import encoder as enc
+    from metatransformer_tpu_torch.core.tree import leaves, tree_map
+    from metatransformer_tpu_torch.utils.registry import MODELS
+
+    t0 = time.perf_counter()
+    smi = _smi()
+    b, n = ZOO_CASE
+    pts = _clouds(seed + 21, b, n)
+    launches, times = {}, {}
+    for name in ZOO_FAMILIES:
+        t_model = time.perf_counter()
+        entry = MODELS.get(name)
+        cfg = entry.Config()
+        params = entry.init(cfg, torch.Generator().manual_seed(seed))  # the card
+        if leaves(params)[0].device.type != dev.type:
+            raise AssertionError(f"zoo {name}: the parameters did not land on the card")
+        cpu_params = tree_map(lambda t: t.cpu(), params)
+        expected = {"fps": ZOO_FPS[name]} if name in ZOO_FPS else {}
+        launches[f"zoo_{name}"] = _zoo_held(
+            f"zoo {name} forward b={b} N={n}", lambda p, x: {"logits": entry.forward(p, x, cfg)},
+            params, cpu_params, pts, expected, dev, f64=name not in ZOO_FP32_ONLY)
+        if hasattr(cfg, "encoder"):
+            tokens = cfg.num_groups + 1
+            print(f"zoo {name}: encoder dim {cfg.encoder.dim}, depth {cfg.encoder.depth}, "
+                  f"T = {tokens}, FP32: _resolve_impl -> "
+                  f"{enc._resolve_impl(cfg.encoder, tokens, enc.FP32)!r} (BF16 would take "
+                  f"{enc._resolve_impl(cfg.encoder, tokens, enc.BF16)!r})", flush=True)
+        on_card = pts.to(dev)
+        with torch.no_grad():
+            times[name] = _median_ms(lambda: entry.forward(params, on_card, cfg), TIMING_REPS)
+        print(f"zoo {name} forward b={b} N={n} ({smi}): {times[name]:.4f} ms, "
+              f"{b * 1000.0 / times[name]:.2f} clouds/s (median of {TIMING_REPS})", flush=True)
+        if profile:
+            _profile_step(lambda: entry.forward(params, on_card, cfg),
+                          f"zoo {name} forward b={b} N={n}", top=8)
+        print(f"zoo {name}: {time.perf_counter() - t_model:.1f} s", flush=True)
+        del params, cpu_params
+        torch.cuda.empty_cache()
+
+    for stem, name in ZOO_RECIPES.items():
+        entry = MODELS.get(name)
+        ncls = 15 if stem.startswith("scanobjectnn") else 40
+        cfg = entry.Config(num_classes=ncls)
+        for offset, bb in ZOO_STEPS_FULL if full else ZOO_STEPS:
+            s = seed + offset
+            params = entry.init(cfg, torch.Generator().manual_seed(s))
+            cpu_params = tree_map(lambda t: t.cpu(), params)
+            x = {"points": _clouds(s + 23, bb, n),
+                 "label": torch.as_tensor(np.random.default_rng(s).integers(0, ncls, bb))}
+            t_step = time.perf_counter()
+            counts = _zoo_step(name, entry, cfg, params, cpu_params, x, dev, s)
+            launches.setdefault(f"zoo_{name}_step", counts)
+            print(f"zoo {name} step: {time.perf_counter() - t_step:.1f} s", flush=True)
+            del params, cpu_params
+            torch.cuda.empty_cache()
+
+    if full:
+        shapes, steps = set(), {}
+        for stem in ZOO_RECIPES:
+            launches[f"recipes_{stem}"], steps[stem] = _train_recipe(stem, seed, dev, profile,
+                                                                     shapes)
+        _hold_shapes(shapes, seed, dev)
+        times.update(_simpleview_conv_times(seed, dev, smi))
+        print(f"zoo recipe step times (ms, median of {TIMING_REPS}, {smi}): "
+              + json.dumps({k: round(v, 4) for k, v in steps.items()}), flush=True)
+    print(f"zoo times (ms, {smi}): "
+          + json.dumps({k: ({kk: round(vv, 4) for kk, vv in v.items()} if isinstance(v, dict)
+                            else round(v, 4)) for k, v in times.items()}), flush=True)
+    print(f"phase_point_zoo: {time.perf_counter() - t0:.1f} s", flush=True)
     return launches
 
 
@@ -4242,16 +4632,21 @@ RECIPE_KERNELS = {
     "imagenet_large_metatransformer": FUSED_PATH,  # ViT-L14, T = 257
     "imagenet_metatransformer": FUSED_PATH,  # T = 197
     "indianpines_caf_metatransformer": FUSED_PATH,  # T = 201
-    # the KITTI detectors run no encoder; PV-RCNN takes its keypoints by FPS
+    # the KITTI detectors run no encoder; PV-RCNN(++) take their keypoints by FPS
+    "kitti_part_a2": (),
     "kitti_pointpillars": (),
     "kitti_pv_rcnn": ("fps",),  # 2048 keypoints from 1024 points a cloud
+    "kitti_pv_rcnn_pp": ("fps",),  # 6 sectors of 682 keypoints from 1024 points a cloud
     "kitti_second": (),
+    "kitti_second_iou": (),
     "kitti_voxel_rcnn": (),
     "indianpines_hyper_metatransformer": FUSED_PATH,  # T = 201
     "kinetics400_metatransformer": FLASH_PATH,  # T = 1568, accum_steps 2
     "kinetics400_videomae_pretrain": FLASH_PATH,  # fp32: decoder T = 1568
     "m4_metatransformer": FUSED_PATH,  # T = 36
+    "modelnet40_curvenet": ("fps",),  # the zoo runs no encoder; 3 FPS a forward
     "modelnet40_metatransformer": ("fps", *FUSED_PATH),  # T = 257
+    "modelnet40_pointnext": ("fps",),  # 4 FPS a forward
     "modelnet40_pointmae_pretrain": ("fps",),  # fp32: T = 17 and 65
     "multimodal_fusion_metatransformer": FLASH_PATH,  # T = 2876
     "pavia_hyper_metatransformer": FUSED_PATH,  # T = 104
@@ -4261,6 +4656,7 @@ RECIPE_KERNELS = {
     "s3dis_metatransformer": ("fps", *FLASH_PATH),  # 4096 points, T = 1025
     "scannet_metatransformer": ("fps", *FLASH_PATH),  # 8192 points, T = 2049
     "scanobjectnn_metatransformer": ("fps", *FUSED_PATH),  # T = 257
+    "scanobjectnn_simpleview": (),  # depth images and a ResNet: no kernel
     "shapenetpart_metatransformer": ("fps", *FLASH_PATH),  # 2048 points, T = 513
     "smd_anomaly_metatransformer": FUSED_PATH,  # T = 100
     "speechcommands_metatransformer": FUSED_PATH,  # 12 x 21 patches, T = 252
@@ -4415,7 +4811,7 @@ def _recipe_batch(stem: str) -> int:
     from metatransformer_tpu_torch.configs import load_config
 
     yaml_batch = load_config(_recipe_yaml(stem)).train.batch_size
-    if stem == RECIPE_FLAGSHIP or stem in DET3D_RECIPES:
+    if stem == RECIPE_FLAGSHIP or stem in DET3D_RECIPES or stem in ZOO_RECIPES:
         return yaml_batch
     return min(yaml_batch, DENSE_RECIPE_BATCH if stem in DENSE_RECIPES + DETECTION_RECIPES
                else RECIPE_BATCH)
@@ -4598,7 +4994,7 @@ def _train_recipe(stem: str, seed: int, dev, profile: bool, shapes: set, extra=(
 
 
 def phase_det3d_recipes(seed: int, dev, profile: bool = False) -> dict:
-    """``--det3d`` only: the four KITTI recipes through ``train_cli`` at full
+    """``--det3d`` only: the seven KITTI recipes through ``train_cli`` at full
     width and their own batch sizes, as ``phase_recipes`` trains them, and
     #7 held against its plain version at the shapes they gave it. Returns
     the launches by path."""
@@ -4726,9 +5122,14 @@ def main() -> None:
                          "detection recipes (DETECTION_RECIPES) as phase_recipes does; prints "
                          "no result")
     ap.add_argument("--det3d", action="store_true",
-                    help="only build and run phase_det3d, then train the four KITTI recipes "
+                    help="only build and run phase_det3d, then train the seven KITTI recipes "
                          "(DET3D_RECIPES) through train_cli as phase_recipes does; prints no "
                          "result")
+    ap.add_argument("--point-zoo", action="store_true",
+                    help="only build and run phase_point_zoo: the 13 zoo classifiers' forwards "
+                         "against the CPU, the three zoo recipe families' steps against the "
+                         "CPU, the three zoo recipes through train_cli and SimpleView's convs "
+                         "on the patch GEMM and cuDNN; prints no result")
     ap.add_argument("--recipes", action="store_true",
                     help="only build and train every ported recipe YAML through train_cli "
                          "at full width (phase_recipes); prints no result")
@@ -4765,6 +5166,9 @@ def main() -> None:
     if args.det3d:
         phase_det3d(args.seed, dev, args.profile)
         phase_det3d_recipes(args.seed, dev, args.profile)
+        return
+    if args.point_zoo:
+        phase_point_zoo(args.seed, dev, args.profile)
         return
     errs = phase_kernels(args.seed, dev)
     phase_autograd(args.seed, dev)
@@ -4811,7 +5215,8 @@ def main() -> None:
     phase_demo(args.seed)
     dense_launches = phase_dense(args.seed, dev, args.profile)
     detection_launches = phase_detection(args.seed, dev, args.profile)
-    det3d_launches = phase_det3d(args.seed, dev, args.profile)
+    det3d_launches = phase_det3d(args.seed, dev, args.profile, full=False)
+    zoo_launches = phase_point_zoo(args.seed, dev, args.profile, full=False)
     recipe_launches, recipe_errs = phase_recipes(args.seed, dev, args.profile)
     for name, err in recipe_errs.items():
         errs[name] = max(errs[name], err)
@@ -4843,6 +5248,7 @@ def main() -> None:
         **dense_launches,
         **detection_launches,
         **det3d_launches,
+        **zoo_launches,
         **recipe_launches,
     }
     on_path = {  # the kernels each path must have gone through
@@ -4881,10 +5287,14 @@ def main() -> None:
         **{f"detection_{path}": ("flash_fwd",)
            for path in ("common", "mask_rcnn", "cascade", "htc")},
         "detection_step": FLASH_KERNELS,
-        # no 3D detector runs the encoder; PV-RCNN takes its keypoints by FPS
-        # (phase_det3d asserts that the others launched nothing)
-        **{f"det3d_{name}{part}": ("fps",) if name == "pv_rcnn" else ()
+        # no 3D detector runs the encoder; PV-RCNN(++) take their keypoints by
+        # FPS (phase_det3d asserts that the others launched nothing)
+        **{f"det3d_{name}{part}": ("fps",) if name in DET3D_FPS else ()
            for name in DET3D_YAMLS for part in ("", "_step")},
+        # the zoo runs no encoder kernel; the families that sample by FPS launch #7
+        **{f"zoo_{name}": ("fps",) if name in ZOO_FPS else () for name in ZOO_FAMILIES},
+        **{f"zoo_{name}_step": ("fps",) if name in ZOO_FPS else ()
+           for name in ZOO_RECIPES.values()},
         **{f"recipes_{stem}": kinds for stem, kinds in RECIPE_KERNELS.items()},
         "recipes_imagenet_data": FUSED_KERNELS,
     }

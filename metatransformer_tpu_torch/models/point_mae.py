@@ -181,3 +181,18 @@ def forward(
     noise = torch.rand(b, l, generator=generator, device=generator.device)
     ids_shuffle = torch.argsort(noise, dim=1).to(points.device)
     return forward_at(params, points, ids_shuffle, cfg)
+
+
+def _register() -> None:
+    """Register the model as ``MaskedPointViT`` (utils/registry.py)."""
+    import types
+
+    from metatransformer_tpu_torch.utils.registry import MODELS
+
+    if "MaskedPointViT" not in MODELS._entries:
+        MODELS._entries["MaskedPointViT"] = types.SimpleNamespace(
+            init=init, forward=forward, Config=MaskedPointViTConfig
+        )
+
+
+_register()

@@ -1152,51 +1152,68 @@ def build_second(cfg, generator, smoke=False, device=None):
 
 
 # the two-stage detectors the port has; the others raise naming item 9
-_TWO_STAGE_PORTED = ("voxel_rcnn", "pv_rcnn")
+_TWO_STAGE_CONFIGS = {"voxel_rcnn": "VoxelRCNNConfig", "pv_rcnn": "PVRCNNConfig",
+                      "pv_rcnn_pp": "PVRCNNPPConfig", "part_a2": "PartA2Config",
+                      "second_iou": "SECONDIoUConfig"}
+# the --smoke geometry of each, as the reference's
+_TWO_STAGE_SMOKE = {
+    "voxel_rcnn": dict(num_rois=16, fg_per=8, grid_size=3, shared_fc=(16,), cls_fc=(16,),
+                       reg_fc=(16,), proposal_pre=64),
+    "pv_rcnn": dict(num_keypoints=32, out_features=16, point_cls_fc=(16,), num_rois=8, fg_per=4,
+                    grid_size=3, roi_radii=(0.8,), roi_nsamples=(8,), roi_mlp=8,
+                    shared_fc=(16,), cls_fc=(16,), reg_fc=(16,), proposal_pre=64),
+    "pv_rcnn_pp": dict(num_keypoints=24, num_sectors=4, out_features=16, point_cls_fc=(16,),
+                       num_rois=8, fg_per=4, grid_size=3, shared_fc=(16,), cls_fc=(16,),
+                       reg_fc=(16,), proposal_pre=64),
+    "part_a2": dict(num_rois=8, fg_per=4, grid_size=3, pool_mlp=8, shared_fc=(16,),
+                    cls_fc=(16,), reg_fc=(16,), proposal_pre=64),
+    "second_iou": dict(num_rois=8, fg_per=4, grid_size=3, shared_fc=(16,), iou_fc=(16,),
+                       proposal_pre=64),
+}
 
 
 def two_stage_config(model_name: str, cfg, smoke: bool = False):
-    """The config of a two-stage KITTI YAML (Voxel R-CNN or PV-RCNN) over a
-    SECOND stage 1: the published geometry, or the smoke one."""
+    """The config of a two-stage KITTI YAML (Voxel R-CNN, PV-RCNN,
+    PV-RCNN++, Part-A2 or SECOND-IoU) over a SECOND stage 1: the published
+    geometry, or the smoke one."""
     import importlib
 
     mod = importlib.import_module(f"metatransformer_tpu_torch.models.{model_name}")
     m = cfg.model
     stage1 = _smoke_second_cfg() if smoke else _full_second_cfg(m.get("stage1", {}))
     kwargs: Dict[str, Any] = {"stage1": stage1}
-    if smoke and model_name == "voxel_rcnn":
-        kwargs.update(
-            num_rois=16, fg_per=8, grid_size=3, shared_fc=(16,), cls_fc=(16,), reg_fc=(16,),
-            proposal_pre=64,
-            pool_layers=(("x_conv2", mod.PoolLayerConfig(2, 0.4, nsample=8, mlp=8)),
-                         ("x_conv3", mod.PoolLayerConfig(4, 0.8, nsample=8, mlp=8))),
-        )
-    elif smoke:
-        kwargs.update(
-            num_keypoints=32, out_features=16, point_cls_fc=(16,), num_rois=8, fg_per=4,
-            grid_size=3, roi_radii=(0.8,), roi_nsamples=(8,), roi_mlp=8, shared_fc=(16,),
-            cls_fc=(16,), reg_fc=(16,), proposal_pre=64,
-            sa_layers=(("raw_points", mod.SALayerConfig((0.4,), (8,), 8)),
-                       ("x_conv2", mod.SALayerConfig((0.8,), (8,), 8, stride=2)),
-                       ("x_conv4", mod.SALayerConfig((2.4,), (8,), 8, stride=8))),
-        )
+    if smoke:
+        kwargs.update(_TWO_STAGE_SMOKE[model_name])
+        if model_name == "voxel_rcnn":
+            kwargs["pool_layers"] = (
+                ("x_conv2", mod.PoolLayerConfig(2, 0.4, nsample=8, mlp=8)),
+                ("x_conv3", mod.PoolLayerConfig(4, 0.8, nsample=8, mlp=8)))
+        elif model_name == "pv_rcnn":
+            kwargs["sa_layers"] = (
+                ("raw_points", mod.SALayerConfig((0.4,), (8,), 8)),
+                ("x_conv2", mod.SALayerConfig((0.8,), (8,), 8, stride=2)),
+                ("x_conv4", mod.SALayerConfig((2.4,), (8,), 8, stride=8)))
+        elif model_name == "pv_rcnn_pp":
+            kwargs["vp_layers"] = (
+                ("raw_points", mod.VectorPoolConfig(2, 0.4, 8, 8, 8)),
+                ("x_conv4", mod.VectorPoolConfig(2, 2.4, 8, 8, 8, stride=8)))
+            kwargs["roi_vp"] = mod.VectorPoolConfig(2, 0.8, 8, 8, 8)
     else:
         kwargs.update({k: m[k] for k in ("num_rois", "fg_per", "grid_size")
                        if m.get(k) is not None})
-    return (mod.VoxelRCNNConfig if model_name == "voxel_rcnn" else mod.PVRCNNConfig)(**kwargs)
+    return getattr(mod, _TWO_STAGE_CONFIGS[model_name])(**kwargs)
 
 
 def _two_stage_builder(model_name: str) -> Callable:
-    """voxel_rcnn / pv_rcnn (and, not ported yet, pv_rcnn_pp / part_a2 /
-    second_iou) share the (points, gt, anchors) training interface over a
-    SECOND stage 1."""
+    """voxel_rcnn / pv_rcnn / pv_rcnn_pp / part_a2 / second_iou share the
+    (points, gt, anchors) training interface over a SECOND stage 1."""
 
     def build(cfg, generator, smoke=False, device=None):
         import importlib
 
         from metatransformer_tpu_torch.models import second
 
-        if model_name not in _TWO_STAGE_PORTED:
+        if model_name not in _TWO_STAGE_CONFIGS:
             _not_ported(f"the {model_name} 3D detection recipe (models/{model_name}.py)", _ITEM_9)
         device = _device.resolve(device)
         mod = importlib.import_module(f"metatransformer_tpu_torch.models.{model_name}")
@@ -1295,11 +1312,79 @@ def _build_point_mae(cfg, generator, smoke=False, device=None):
     )
 
 
+def _point_zoo_smoke_cfg(name, num_classes):
+    """Tiny structurally identical geometry a zoo entry (the small configs
+    the reference's unit tests train with)."""
+    from metatransformer_tpu_torch.models import curvenet as cn
+    from metatransformer_tpu_torch.models import point_baselines as pb
+    from metatransformer_tpu_torch.models import point_baselines2 as pb2
+    from metatransformer_tpu_torch.models import point_baselines3 as pb3
+    from metatransformer_tpu_torch.models import simpleview as sv
+
+    table = {
+        "BallDGCNN": lambda: pb3.BallDGCNNConfig(
+            num_classes=num_classes, channels=8, embed_dim=32, n_blocks=4, k=8, radius=0.4,
+            head_fcs=(16,)),
+        "GroupPointNet": lambda: pb3.GroupPointNetConfig(
+            num_classes=num_classes, channels=8, n_blocks=4, k=8, head_fcs=(16,)),
+        "ViTGraph": lambda: pb3.ViTGraphConfig(
+            num_classes=num_classes, encoder_dim=32, embed_dim=16, depth=2, num_heads=4,
+            num_groups=128, group_size=8, head_fcs=(16,)),
+        "PointNet2Encoder": lambda: pb.PointNet2Config(
+            num_classes=num_classes,
+            stages=(pb.SAMSGStage(32, (0.2, 0.4), (8, 16), ((8, 16), (8, 16))),
+                    pb.SAMSGStage(8, (0.4, 0.8), (8, 16), ((16, 32), (16, 32)))),
+            global_mlp=(32, 64), head_fcs=(32,)),
+        "DGCNN": lambda: pb.DGCNNConfig(
+            num_classes=num_classes, k=8, edge_channels=(8, 8, 16), emb_dim=32, head_fcs=(16,)),
+        "PointMLP": lambda: pb.PointMLPConfig(
+            num_classes=num_classes, embed_dim=8, k=8, stage_channels=(8, 16), head_fcs=(16,)),
+        "PointNeXt": lambda: pb.PointNeXtConfig(
+            num_classes=num_classes, stem_dim=8, stage_channels=(8, 16), base_radius=0.3, k=8,
+            head_fcs=(16,)),
+        "PointNetEncoder": lambda: pb2.PointNetConfig(num_classes=num_classes, head_fcs=(32,)),
+        "PCT": lambda: pb2.PCTConfig(
+            num_classes=num_classes, stem=(8, 8), stage_points=(16, 8), stage_channels=(16, 32),
+            k=8, num_sa=2, fuse_dim=32, head_fcs=(16,)),
+        "PointViT": lambda: pb2.PointViTConfig(
+            num_classes=num_classes, dim=32, depth=2, num_heads=4, num_groups=128, group_size=8,
+            head_fcs=(16,)),
+        "DeepGCN": lambda: pb2.DeepGCNConfig(
+            num_classes=num_classes, channels=8, emb_dim=32, n_blocks=3, k=4, head_fcs=(16,)),
+        "CurveNet": lambda: cn.CurveNetConfig(
+            num_classes=num_classes, embed_dim=8, k=8,
+            stages=(cn.CICStage(64, 0.4, 8, 16, (8, 3)), cn.CICStage(16, 0.8, 8, 32, None)),
+            head_fcs=(16,)),
+        "SimpleView": lambda: sv.SimpleViewConfig(
+            num_classes=num_classes, channels=4, resolution=32, blocks_per_stage=1),
+    }
+    return table[name]()
+
+
 def build_point_baseline(cfg, generator, smoke=False, device=None):
-    """Baseline-zoo classification recipes (cfg.model.NAME selects a
-    registry backbone)."""
-    _not_ported(f"the {cfg.model.NAME} point classification recipe (build_point_baseline)",
-                _ITEM_9)
+    """Baseline-zoo classification recipes: cfg.model.NAME selects a
+    registry backbone (the openpoints ``cfgs/modelnet40ply2048/*.yaml``
+    launcher surface: one YAML a vendored baseline)."""
+    from metatransformer_tpu_torch.utils.registry import MODELS
+
+    device = _device.resolve(device)
+    name = cfg.model.NAME
+    mod = MODELS.get(name)
+    ncls = cfg.model.num_classes
+    mcfg = _point_zoo_smoke_cfg(name, ncls) if smoke else mod.Config(num_classes=ncls)
+    params = mod.init(mcfg, generator, device)
+
+    def forward(p, x, gen):
+        return mod.forward(p, batch_to_device(x, device), mcfg)
+
+    def synth(batch_size, n_batches, seed):
+        rng = np.random.default_rng(seed)
+        n = 64 if smoke else cfg.train.get("num_points", 1024)
+        for _ in range(n_batches):
+            pts = rng.standard_normal((batch_size, n, 3)).astype(np.float32)
+            yield {"input": pts * 0.5, "label": _labels(rng, batch_size, ncls)}
+
+    return Recipe(params, forward, synth)
 
 
 def _audio_builder(cfg, generator, smoke=False, device=None):

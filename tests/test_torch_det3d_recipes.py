@@ -1,16 +1,16 @@
-"""The port's four KITTI 3D detection recipes (recipes.py: PointPillars,
-SECOND, Voxel R-CNN and PV-RCNN) against the JAX package's at --smoke
-geometry on the CPU, FP32:
+"""The port's seven KITTI 3D detection recipes (recipes.py: PointPillars,
+SECOND, Voxel R-CNN, PV-RCNN, SECOND-IoU, Part-A2 and PV-RCNN++) against
+the JAX package's at --smoke geometry on the CPU, FP32:
 
 - ``synth`` batches are bit-equal to JAX's;
 - the parameter trees have the same keys and shapes as the reference's
   init (traced for shapes only);
 - with the port's seeded weights (perturbed) given to both, ``forward``
   (the training loss) matches at 1e-5;
-- the two-stage detectors the port does not have yet (Part-A2, SECOND-IoU,
-  PV-RCNN++) still raise naming ROADMAP item 9.
+- a detector that ``recipes._two_stage_builder`` does not know raises
+  naming ROADMAP item 9.
 
-tests/test_torch_train_cli.py trains each of the four one step through
+tests/test_torch_train_cli.py trains each of the seven one step through
 ``train_cli``.
 """
 
@@ -26,8 +26,11 @@ import torch
 from metatransformer_tpu import recipes as jrecipes
 from metatransformer_tpu.configs import load_config as jload_config
 from metatransformer_tpu.models import detector3d as jdet
+from metatransformer_tpu.models import part_a2 as jpa
 from metatransformer_tpu.models import pv_rcnn as jpv
+from metatransformer_tpu.models import pv_rcnn_pp as jpp
 from metatransformer_tpu.models import second as jsecond
+from metatransformer_tpu.models import second_iou as jsi
 from metatransformer_tpu.models import voxel_rcnn as jvr
 from metatransformer_tpu_torch import recipes
 from metatransformer_tpu_torch.configs import CONFIG_DIR, load_config
@@ -40,7 +43,9 @@ torch.set_num_threads(1)
 BATCH = 2
 LOSS_RTOL = 1e-5
 JAX_INIT = {"kitti_pointpillars.yaml": jdet, "kitti_second.yaml": jsecond,
-            "kitti_voxel_rcnn.yaml": jvr, "kitti_pv_rcnn.yaml": jpv}
+            "kitti_voxel_rcnn.yaml": jvr, "kitti_pv_rcnn.yaml": jpv,
+            "kitti_second_iou.yaml": jsi, "kitti_part_a2.yaml": jpa,
+            "kitti_pv_rcnn_pp.yaml": jpp}
 
 
 def _path(name):
@@ -105,8 +110,12 @@ def test_forward_matches_jax(name):
     np.testing.assert_allclose(got.item(), float(want), rtol=LOSS_RTOL, atol=1e-6)
 
 
-@pytest.mark.parametrize("model", ["part_a2", "second_iou", "pv_rcnn_pp"])
+@pytest.mark.parametrize("model", ["point_rcnn", "iassd", "caddn"])
 def test_unported_two_stage_detectors_raise_naming_item_9(model):
+    """All five two-stage detectors of ``recipes._TWO_STAGE_CONFIGS`` are
+    ported; ``_two_stage_builder`` of a KITTI detector still unported
+    raises naming item 9."""
+    assert model not in recipes._TWO_STAGE_CONFIGS
     cfg = load_config(_path(f"kitti_{model}.yaml"))
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 9"):
         recipes._two_stage_builder(model)(cfg, torch.Generator().manual_seed(0), smoke=True,

@@ -11,10 +11,13 @@ ported recipe YAML at --smoke geometry on the CPU:
 - ``loss_fn`` matches at 1e-5 on fixed arrays.
 
 The four COCO detection recipes are held in
-tests/test_torch_detection_recipes.py, the four KITTI ones (PointPillars,
-SECOND, Voxel R-CNN, PV-RCNN) in tests/test_torch_det3d_recipes.py. The 19
-YAMLs of families the port does not have raise NotImplementedError naming
-their ROADMAP item.
+tests/test_torch_detection_recipes.py, the seven KITTI ones (PointPillars,
+SECOND, Voxel R-CNN, PV-RCNN, SECOND-IoU, Part-A2, PV-RCNN++) in
+tests/test_torch_det3d_recipes.py. The three point-zoo recipes (PointNeXt,
+CurveNet, SimpleView; FP32) are held here: synth, trees, and the first
+step's logits at 1e-4 (as the MAE losses) and loss at 1e-5, with the
+port's weights given to both. The 13 YAMLs of families the port does not have
+raise NotImplementedError naming their ROADMAP item.
 """
 
 import functools
@@ -61,12 +64,9 @@ PORTED = [
 UNPORTED = {
     "imagenet_moe_metatransformer.yaml": "item 8",
     **{name: "item 9" for name in (
-        "kitti_caddn.yaml",
-        "kitti_centerpoint.yaml", "kitti_iassd.yaml", "kitti_part_a2.yaml",
-        "kitti_point_rcnn.yaml", "kitti_pv_rcnn_pp.yaml", "kitti_second_iou.yaml",
-        "mdf_waymo_nusc_second.yaml", "nuscenes_centerpoint.yaml",
-        "waymo_centerpoint.yaml", "modelnet40_curvenet.yaml", "modelnet40_pointnext.yaml",
-        "scanobjectnn_simpleview.yaml", "s3dis_baafnet.yaml", "s3dis_pointtransformer.yaml",
+        "kitti_caddn.yaml", "kitti_centerpoint.yaml", "kitti_iassd.yaml",
+        "kitti_point_rcnn.yaml", "mdf_waymo_nusc_second.yaml", "nuscenes_centerpoint.yaml",
+        "waymo_centerpoint.yaml", "s3dis_baafnet.yaml", "s3dis_pointtransformer.yaml",
         "s3dis_randlanet.yaml", "s3dis_stratified.yaml", "semantickitti_randlanet.yaml",
     )},
 }
@@ -75,8 +75,12 @@ DETECTION = ("coco_cascade_rcnn_metatransformer.yaml", "coco_htcpp_metatransform
              "coco_mask_rcnn_metatransformer.yaml",
              "coco_upgraded_mask_rcnn_metatransformer.yaml")
 # the KITTI detection recipes, held in tests/test_torch_det3d_recipes.py
-DET3D = ("kitti_pointpillars.yaml", "kitti_pv_rcnn.yaml", "kitti_second.yaml",
+DET3D = ("kitti_part_a2.yaml", "kitti_pointpillars.yaml", "kitti_pv_rcnn.yaml",
+         "kitti_pv_rcnn_pp.yaml", "kitti_second.yaml", "kitti_second_iou.yaml",
          "kitti_voxel_rcnn.yaml")
+# the point-classification zoo's recipes (FP32), held below
+POINT_ZOO = ("modelnet40_curvenet.yaml", "modelnet40_pointnext.yaml",
+             "scanobjectnn_simpleview.yaml")
 MAE = ("kinetics400_videomae_pretrain.yaml", "modelnet40_pointmae_pretrain.yaml")
 MASK2FORMER = ("ade20k_mask2former_metatransformer.yaml", "coco_mask2former_metatransformer.yaml")
 GRAPH = ("pcqm4mv2_tokengt.yaml", "pcqm4mv2_tokengt_performer.yaml")
@@ -109,8 +113,10 @@ def test_the_ported_list_is_exact():
     """Every shipped recipe is either ported or named unported: exact
     counts, so a new YAML or a newly ported family shows here."""
     every = sorted(n for n in os.listdir(CONFIG_DIR) if n.endswith(".yaml") and n != "default.yaml")
-    assert len(PORTED) == 28 and len(DETECTION) == len(DET3D) == 4 and len(UNPORTED) == 19
-    assert sorted(PORTED + list(DETECTION) + list(DET3D) + list(UNPORTED)) == every
+    assert len(PORTED) == 28 and len(DETECTION) == 4 and len(DET3D) == 7
+    assert len(POINT_ZOO) == 3 and len(UNPORTED) == 13
+    assert sorted(PORTED + list(DETECTION) + list(DET3D) + list(POINT_ZOO)
+                  + list(UNPORTED)) == every
 
 
 @pytest.mark.parametrize("name", PORTED)
@@ -203,6 +209,73 @@ def test_loss_fn_matches_jax_on_fixed_arrays(name):
     want = float(jloss(jnp.asarray(out), jax.tree.map(jnp.asarray, label)))
     got = float(loss(torch.tensor(out), jax.tree.map(torch.tensor, label)))
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+
+
+@functools.lru_cache(maxsize=None)
+def _zoo_pair(name):
+    """(JAX recipe, port recipe, JAX init's shapes) of a point-zoo YAML at
+    --smoke geometry: the JAX recipe's init returns the port's weights (its
+    eager init of CurveNet or SimpleView takes seconds), traced for shapes
+    only."""
+    from metatransformer_tpu.models import curvenet, point_baselines, simpleview  # noqa: F401
+    from metatransformer_tpu.utils.registry import MODELS as JMODELS
+
+    rec = recipes.build(load_config(_path(name)), torch.Generator().manual_seed(0),
+                        smoke=True, device="cpu")
+    weights, shapes = convert.to_numpy(rec.params), {}
+    entry = JMODELS.get(load_config(_path(name)).model.NAME)
+
+    def init(cfg, key):
+        shapes["tree"] = jax.eval_shape(lambda k: real_init(cfg, k), key)
+        return jax.tree.map(jnp.asarray, weights)
+
+    real_init = entry.init
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(entry, "init", init)
+        jrec = jrecipes.build(jload_config(_path(name)), jax.random.PRNGKey(0), smoke=True)
+    return jrec, rec, shapes["tree"]
+
+
+@pytest.mark.parametrize("name", POINT_ZOO)
+def test_point_zoo_synth_and_trees_equal_jax(name):
+    jrec, rec, shapes = _zoo_pair(name)
+    for g, w in zip(_batches(rec, 2), jrec.synth(BATCH, 2, 3)):
+        np.testing.assert_array_equal(g["input"], np.asarray(w["input"]))
+        np.testing.assert_array_equal(g["label"], np.asarray(w["label"]))
+        assert g["input"].dtype == np.float32 and g["label"].dtype == np.int64
+    got = leaves_with_path(rec.params)
+    want = leaves_with_path(jax.tree.map(lambda a: np.zeros(a.shape, a.dtype), shapes))
+    assert [(p, tuple(a.shape)) for p, a in got] == [(p, b.shape) for p, b in want]
+
+
+@pytest.mark.parametrize("name", POINT_ZOO)
+def test_point_zoo_first_step_matches_jax(name):
+    """The first synthetic batch's logits (FP32) at 1e-4 and their
+    cross-entropy at 1e-5, the same weights in both. SimpleView runs in
+    float64 on the reference's fp32 depth images, as in
+    tests/test_torch_point_baselines.py: at fp32 the reference's own logits
+    stand further from the float64 ones than the bound."""
+    from tests.test_torch_point_baselines import ILL_CONDITIONED, _wide, fixed_views
+
+    jrec, rec, _ = _zoo_pair(name)
+    batch = _batches(rec, 1)[0]
+    params, x = _np(jrec.params), batch["input"]
+    family = load_config(_path(name)).model.NAME
+    wide = family in ILL_CONDITIONED
+    if wide:
+        params, x = _wide(params), x.astype(np.float64)
+    with fixed_views(family, recipes._point_zoo_smoke_cfg(family, 1), batch["input"]):
+        with jax.enable_x64(wide):
+            want = np.asarray(jax.jit(jrec.forward)(jax.tree.map(jnp.asarray, params),
+                                                    jnp.asarray(x), KEY))
+        with torch.no_grad():
+            got = rec.forward(convert.from_numpy(params, "cpu"), x, None)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
+    jloss = float(jstep.cross_entropy_loss(jnp.asarray(want), jnp.asarray(batch["label"])))
+    loss = float(step_lib.cross_entropy_loss(torch.tensor(want), torch.tensor(batch["label"])))
+    np.testing.assert_allclose(loss, jloss, rtol=1e-5)
+    np.testing.assert_allclose(
+        float(step_lib.cross_entropy_loss(got, torch.tensor(batch["label"]))), jloss, rtol=1e-4)
 
 
 @pytest.mark.parametrize("name", sorted(UNPORTED))
