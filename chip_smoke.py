@@ -3806,10 +3806,11 @@ def phase_detection(seed: int, dev, profile: bool = False) -> dict:
 DET3D_YAMLS = {"pointpillars": "kitti_pointpillars", "second": "kitti_second",
                "voxel_rcnn": "kitti_voxel_rcnn", "pv_rcnn": "kitti_pv_rcnn",
                "second_iou": "kitti_second_iou", "part_a2": "kitti_part_a2",
-               "pv_rcnn_pp": "kitti_pv_rcnn_pp"}
-# The seven KITTI recipes train at their YAMLs' own batch sizes (32, 4, 2, 2,
-# 4, 2, 2).
-DET3D_RECIPES = tuple(sorted(DET3D_YAMLS.values()))
+               "pv_rcnn_pp": "kitti_pv_rcnn_pp", "centerpoint": "kitti_centerpoint"}
+# The ten 3D recipes (the eight KITTI ones, CenterPoint's nuScenes and Waymo)
+# train at their YAMLs' own batch sizes (32, 4, 2, 2, 4, 2, 2, 2; 4, 4).
+DET3D_RECIPES = tuple(sorted(DET3D_YAMLS.values())) + ("nuscenes_centerpoint",
+                                                       "waymo_centerpoint")
 DET3D_CASES = ((1, 16384), (2, 1024))  # (clouds a request, points a cloud): a scan, the recipes'
 # FPS launches a forward: PV-RCNN's keypoints; PV-RCNN++'s, one a sector
 DET3D_FPS = {"pv_rcnn": 1, "pv_rcnn_pp": 6}
@@ -3878,38 +3879,43 @@ def _det3d_pins(train: bool = False) -> _ReplayedOn:
     """The 3D detectors' discrete choices: the voxel set, the top-k and NMS
     keeps, the grid pool's voxels, the ball groups' members, PV-RCNN++'s
     sector sets and VectorPool members; training, also the anchor
-    assignment, the RoI sampling and Part-A2's part targets. fp32 rounding
-    on either side of a floor, a threshold or a radius flips any of them."""
+    assignment, the RoI sampling, Part-A2's part targets, CenterPoint's
+    heatmap targets and the ReLU gates of the sparse, BEV and centre-head
+    stages (``gates.act_gate``). fp32 rounding on either side of a floor, a
+    threshold, a radius or 0 flips any of them."""
     from metatransformer_tpu_torch.models import detector3d, pv_rcnn, voxel_rcnn
-    from metatransformer_tpu_torch.ops import iou3d
+    from metatransformer_tpu_torch.ops import gates, iou3d
     from metatransformer_tpu_torch.ops import sparse_conv as sp
 
-    from metatransformer_tpu_torch.models import part_a2, pv_rcnn_pp
+    from metatransformer_tpu_torch.models import centerpoint, part_a2, pv_rcnn_pp
 
     targets = [(sp, "voxel_assignment"), (detector3d, "top_scores"), (iou3d, "nms_bev"),
                (voxel_rcnn, "pool_members"), (pv_rcnn, "ball_members"),
                (pv_rcnn_pp, "spc_keep"), (pv_rcnn_pp, "vector_pool_members")]
     if train:
         targets += [(detector3d, "assign_targets"), (voxel_rcnn, "sample_rois"),
-                    (part_a2, "part_targets")]
+                    (part_a2, "part_targets"), (centerpoint, "assign_targets"),
+                    (gates, "act_gate")]
     return _ReplayedOn(*targets)
 
 
 def _det3d_cfgs() -> dict:
-    """The seven KITTI YAMLs' model configs, as ``recipes.py`` builds them."""
+    """The eight KITTI YAMLs' model configs, as ``recipes.py`` builds them."""
     from metatransformer_tpu_torch import recipes
     from metatransformer_tpu_torch.configs import load_config
 
     cfgs = {name: load_config(_recipe_yaml(stem)) for name, stem in DET3D_YAMLS.items()}
     return {"pointpillars": recipes.pointpillars_config(cfgs["pointpillars"]),
             "second": recipes.second_config(cfgs["second"]),
-            **{name: recipes.two_stage_config(name, cfgs[name])
-               for name in DET3D_YAMLS if name not in ("pointpillars", "second")}}
+            "centerpoint": recipes.centerpoint_config(cfgs["centerpoint"]),
+            **{name: recipes.two_stage_config(name, cfgs[name]) for name in DET3D_YAMLS
+               if name not in ("pointpillars", "second", "centerpoint")}}
 
 
 def _det3d_models(seed: int) -> dict:
-    """name -> (cfg, anchors [A, 7] on the CPU, parameters on the card): each
-    model built with no device named."""
+    """name -> (cfg, anchors [A, 7] on the CPU (none for the anchor-free
+    CenterPoint), parameters on the card): each model built with no device
+    named."""
     import importlib
 
     from metatransformer_tpu_torch.models import detector3d, second
@@ -3920,6 +3926,7 @@ def _det3d_models(seed: int) -> dict:
             f"metatransformer_tpu_torch.models.{name}")
         params = mod.init(cfg, torch.Generator().manual_seed(seed))  # the card
         anchors = (detector3d.generate_anchors(cfg) if name == "pointpillars"
+                   else np.zeros((0, 7), np.float32) if name == "centerpoint"
                    else second.generate_anchors(getattr(cfg, "stage1", cfg)))
         out[name] = (cfg, torch.as_tensor(anchors), params)
     return out
@@ -3946,7 +3953,19 @@ def _det3d_fns(name: str, cfg, anchors):
     def stacked(dets):
         return {k: torch.stack([d[k] for d in dets]) for k in dets[0]}
 
-    if name in ("pointpillars", "second"):
+    if name == "centerpoint":
+        from metatransformer_tpu_torch.models import centerpoint as cp
+
+        def forward(p, pts):
+            return cp.forward(p, pts, cfg)
+
+        def predict(p, pts):
+            return stacked(cp.decode(cp.forward(p, pts, cfg), cfg))
+
+        def loss(p, x):
+            return cp.detection_loss(cp.forward(p, x["points"], cfg), x["gt_boxes"],
+                                     x["gt_labels"], x["gt_valid"], cfg)
+    elif name in ("pointpillars", "second"):
         mod = detector3d if name == "pointpillars" else second
 
         def forward(p, pts):
@@ -4131,7 +4150,10 @@ def _grads_held(label: str, loss_fn, params, cpu_params, x: dict, dev, pins: _Re
                         tree_params)
         loss, _ = loss_fn(tree, batch)
         loss.backward()
-        return loss.item(), [(p, leaf.grad) for p, leaf in leaves_with_path(tree)]
+        # a leaf the loss never reads (Stratified's stem/bn2, as in the
+        # reference) has a zero gradient
+        return loss.item(), [(p, torch.zeros_like(leaf) if leaf.grad is None else leaf.grad)
+                             for p, leaf in leaves_with_path(tree)]
 
     def f64(t):
         return t.double() if t.is_floating_point() else t
@@ -4203,8 +4225,11 @@ def _det3d_step(name, fns, params, cpu_params, x, dev) -> dict:
     and float64 (``_grads_held``), the choices of ``_det3d_pins(train=True)``
     replayed. Returns the card's launches."""
     expected = {"fps": DET3D_FPS[name]} if name in DET3D_FPS else {}
+    # CenterPoint's head convs carry a bias ahead of a GroupNorm: zero
+    # gradients up to rounding, held by size (``_grads_held`` ``zero_leaf``)
     return _grads_held(f"det3d {name}", fns[2], params, cpu_params, x, dev,
-                       _det3d_pins(train=True), expected)
+                       _det3d_pins(train=True), expected,
+                       zero_leaf=ZOO_ZERO_LEAF if name == "centerpoint" else 0.0)
 
 
 def _part_a2_head_times(params, cfg, dev, smi: str) -> dict:
@@ -4389,7 +4414,7 @@ def _zoo_pins(train: bool = False) -> _ReplayedOn:
     space kNN in DGCNN, DeepGCN and PCT: near-ties), CurveNet's curve starts
     and walk steps, SimpleView's splat pixels; training, also where each
     max-pool's maximum sits and on which side of 0 each ReLU's input falls
-    (``point_baselines.max_winners`` and ``act_gate``: a few of millions
+    (``point_baselines.max_winners`` and ``gates.act_gate``: a few of millions
     flip between fp32 and float64 or between two devices, and each moves a
     BatchNorm channel's gradient; with them free, PointNeXt's fp32 gradient
     at b = 8 stood 0.51% (CPU) and 0.78% (card) from float64). FPS runs on
@@ -4397,18 +4422,21 @@ def _zoo_pins(train: bool = False) -> _ReplayedOn:
     index-exact."""
     from metatransformer_tpu_torch.models import curvenet, simpleview
     from metatransformer_tpu_torch.models import point_baselines as pb
+    from metatransformer_tpu_torch.ops import gates
     from metatransformer_tpu_torch.ops import point_ops as po
 
     targets = [(po, "knn"), (po, "ball_query"), (curvenet, "curve_starts"),
                (curvenet, "walk_choice"), (simpleview, "view_pixels")]
     if train:
-        targets += [(pb, "max_winners"), (pb, "act_gate")]
+        targets += [(pb, "max_winners"), (gates, "act_gate")]
     return _ReplayedOn(*targets)
 
 
-def _zoo_held(what: str, fn, params, cpu_params, x, expected: dict, dev, f64: bool) -> dict:
+def _zoo_held(what: str, fn, params, cpu_params, x, expected: dict, dev, f64: bool,
+              pins: _ReplayedOn = None) -> dict:
     """A zoo forward ``fn(params, x) -> {"logits": ...}`` on the CPU
-    recording ``_zoo_pins()``, then on the card replaying them. With
+    recording ``pins`` (default ``_zoo_pins()``), then on the card replaying
+    them. With
     ``f64`` also replayed in float64 on the CPU, and the card's logits held
     within DET3D_LEAF_FACTOR times the CPU fp32 run's distance from it, or
     the DET3D bounds (PCT's offset attention is ill-conditioned in fp32:
@@ -4416,7 +4444,7 @@ def _zoo_held(what: str, fn, params, cpu_params, x, expected: dict, dev, f64: bo
     CPU's fp32 at the DET3D bounds. Returns the card run's launches."""
     from metatransformer_tpu_torch.core.tree import tree_map
 
-    pins = _zoo_pins()
+    pins = pins or _zoo_pins()
     with torch.no_grad():
         with pins.record():
             want = fn(cpu_params, x)
@@ -4596,6 +4624,154 @@ def phase_point_zoo(seed: int, dev, profile: bool = False, full: bool = True) ->
 
 
 # --------------------------------------------------------------------------
+# The point-segmentation baselines
+# --------------------------------------------------------------------------
+
+# family -> its S3DIS YAML (the widths, classes and points a cloud)
+SEG_YAMLS = {"RandLANet": "s3dis_randlanet", "BAAFNet": "s3dis_baafnet",
+             "PointTransformerSeg": "s3dis_pointtransformer",
+             "StratifiedTransformer": "s3dis_stratified"}
+SEG_RECIPES = tuple(sorted(SEG_YAMLS.values())) + ("semantickitti_randlanet",)
+# FPS launches a forward: BAAF-Net's and PointTransformerSeg's four
+# downsamplings, Stratified's TransitionDowns (3) and stratified keys (3)
+SEG_FPS = {"BAAFNet": 4, "PointTransformerSeg": 4, "StratifiedTransformer": 6}
+# The default run holds each family's forward and one step at b = 2;
+# --point-seg also at the YAML's batch (4; Stratified 8), with times.
+SEG_BATCH = 2
+# #7 at the shapes these models give it: 4096 points, 4x a level, at the
+# YAMLs' batches 4 (BAAF-Net, PointTransformerSeg) and 8 (Stratified)
+SEG_FPS_CASES = tuple((b, n, n // 4) for b in (4, 8) for n in (4096, 1024, 256, 64))
+
+
+def _seg_pins(train: bool = False) -> _ReplayedOn:
+    """The segmenters' discrete choices: the kNN, ball-query and 3-NN
+    members, RandLA-Net's permutation (a generator seeded 0 draws another
+    one on each device), Stratified's window masks and cRPE index (floors
+    of coordinates); training, also the max-pool winners and the ReLU
+    gates (``point_baselines.max_winners`` / ``gates.act_gate``), as
+    ``_zoo_pins``."""
+    from metatransformer_tpu_torch.models import point_baselines as pb
+    from metatransformer_tpu_torch.models import randlanet, stratified_transformer as st
+    from metatransformer_tpu_torch.ops import gates, point_interp
+    from metatransformer_tpu_torch.ops import point_ops as po
+
+    targets = [(po, "knn"), (po, "ball_query"), (point_interp, "three_nn"),
+               (randlanet, "default_perm"), (st, "window_masks"), (st, "crpe_index")]
+    if train:
+        targets += [(pb, "max_winners"), (gates, "act_gate")]
+    return _ReplayedOn(*targets)
+
+
+def _seg_model(name: str):
+    """(registry entry, model config, points a cloud, feature channels past
+    the coordinates, the YAML's batch) of one family at its YAML's width."""
+    from metatransformer_tpu_torch import recipes
+    from metatransformer_tpu_torch.configs import load_config
+    from metatransformer_tpu_torch.utils.registry import MODELS
+
+    cfg = load_config(_recipe_yaml(SEG_YAMLS[name]))
+    if name == "PointTransformerSeg":
+        mcfg, n = recipes.point_transformer_seg_config(cfg)
+        extra = mcfg.in_channels if mcfg.in_channels > 3 else 0
+    else:
+        (mcfg, n), extra = recipes.seg_baseline_config(cfg), 0
+    return MODELS.get(name), mcfg, n, extra, cfg.train.batch_size
+
+
+def phase_point_seg(seed: int, dev, profile: bool = False, full: bool = True) -> dict:
+    """The point-segmentation baselines at their S3DIS YAMLs' widths (4,096
+    points, 13 classes; PointTransformerSeg with 6 feature channels), fp32,
+    through the registry with no device named: (a) each family's forward at
+    b = SEG_BATCH (``full``: also the YAML's batch) against a float64 run
+    on the CPU (``_zoo_held``), the choices of ``_seg_pins`` recorded on the
+    CPU and replayed; #7 launched SEG_FPS times a forward, nothing else;
+    each forward timed (median of TIMING_REPS; ``profile``: by kernel, the
+    idle share); (b) one backward of the per-point cross-entropy against
+    the CPU and float64 (``_grads_held``, ``_seg_pins(train=True)``) at the
+    same batches; (c) #7 index for index against its plain version at
+    SEG_FPS_CASES, with ``full`` its times; (d) with ``full``
+    (``--point-seg``; the default run trains them in ``phase_recipes``):
+    the five recipes through ``train_cli`` at their YAMLs' batches. Returns
+    the launches by path."""
+    from metatransformer_tpu_torch.core.tree import leaves, tree_map
+    from metatransformer_tpu_torch.ops import point_ops as po
+
+    t0 = time.perf_counter()
+    smi = _smi()
+    launches, times = {}, {}
+    for name in SEG_YAMLS:
+        t_model = time.perf_counter()
+        entry, cfg, n, extra, yaml_batch = _seg_model(name)
+        params = entry.init(cfg, torch.Generator().manual_seed(seed))  # the card
+        if leaves(params)[0].device.type != dev.type:
+            raise AssertionError(f"seg {name}: the parameters did not land on the card")
+        cpu_params = tree_map(lambda t: t.cpu(), params)
+        expected = {"fps": SEG_FPS[name]} if name in SEG_FPS else {}
+
+        def logits(p, x):  # x: the coordinates, then any feature channels
+            return entry.forward(p, x[..., :3], cfg, features=x[..., 3:] if extra else None)
+
+        for b in (SEG_BATCH, yaml_batch) if full else (SEG_BATCH,):
+            rng = np.random.default_rng(seed + b)
+            x = torch.cat([_clouds(seed + 31 + b, b, n), torch.tensor(
+                rng.standard_normal((b, n, extra), np.float32))], -1)
+            counts = _zoo_held(f"seg {name} forward b={b} N={n}",
+                               lambda p, xx: {"logits": logits(p, xx)}, params, cpu_params, x,
+                               expected, dev, f64=True, pins=_seg_pins())
+            launches.setdefault(f"seg_{name}", counts)
+            label = torch.as_tensor(rng.integers(0, cfg.num_classes, (b, n)))
+            counts = _grads_held(
+                f"seg {name} (b={b})",
+                lambda p, batch: (F.cross_entropy(logits(p, batch["points"]).movedim(-1, 1),
+                                                  batch["label"]), {}),
+                params, cpu_params, {"points": x, "label": label}, dev, _seg_pins(train=True),
+                expected, zero_leaf=ZOO_ZERO_LEAF)
+            launches.setdefault(f"seg_{name}_step", counts)
+            if full:
+                on_card = x.to(dev)
+                with torch.no_grad():
+                    times[f"{name} b={b}"] = _median_ms(lambda: logits(params, on_card),
+                                                        TIMING_REPS)
+                print(f"seg {name} forward b={b} N={n} ({smi}): {times[f'{name} b={b}']:.4f} "
+                      f"ms, {b * 1000.0 / times[f'{name} b={b}']:.2f} clouds/s (median of "
+                      f"{TIMING_REPS})", flush=True)
+                if profile:
+                    _profile_step(lambda: logits(params, on_card),
+                                  f"seg {name} forward b={b} N={n}", top=10)
+        print(f"seg {name}: {time.perf_counter() - t_model:.1f} s", flush=True)
+        del params, cpu_params
+        torch.cuda.empty_cache()
+
+    for b, n, g in SEG_FPS_CASES:
+        pts = _clouds(seed + 41 + n, b, n).to(dev)
+        _check_fps(f"point segmentation B={b} N={n} G={g}", pts, g)
+        if not full:
+            continue
+        with torch.no_grad():
+            ms = _loop_ms(lambda: po.fps_cuda(pts, g))
+            plain = _median_ms(lambda: po.furthest_point_sample_plain(pts, g), 3)
+        bound = _fps_bound(b, n, g)
+        times[f"fps B={b} N={n} G={g}"] = {"kernel": ms, "plain": plain,
+                                           "bound": bound["bound_ms"]}
+        print(f"fps point segmentation B={b} N={n} G={g} ({smi}): {ms:.4f} ms a launch (loop of "
+              f"{TIMING_REPS}), plain version {plain:.4f} ms, bound {bound['bound_ms']:.4f} ms "
+              f"({bound['bound_by']})", flush=True)
+    if full:
+        shapes, steps = set(), {}
+        for stem in SEG_RECIPES:
+            launches[f"recipes_{stem}"], steps[stem] = _train_recipe(stem, seed, dev, profile,
+                                                                     shapes)
+        _hold_shapes(shapes, seed, dev)
+        print(f"seg recipe step times (ms, median of {TIMING_REPS}, {smi}): "
+              + json.dumps({k: round(v, 4) for k, v in steps.items()}), flush=True)
+    print(f"seg times (ms, {smi}): "
+          + json.dumps({k: ({kk: round(vv, 4) for kk, vv in v.items()} if isinstance(v, dict)
+                            else round(v, 4)) for k, v in times.items()}), flush=True)
+    print(f"phase_point_seg: {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches
+
+
+# --------------------------------------------------------------------------
 # The training entry point: every ported recipe YAML through train_cli
 # --------------------------------------------------------------------------
 
@@ -4632,7 +4808,8 @@ RECIPE_KERNELS = {
     "imagenet_large_metatransformer": FUSED_PATH,  # ViT-L14, T = 257
     "imagenet_metatransformer": FUSED_PATH,  # T = 197
     "indianpines_caf_metatransformer": FUSED_PATH,  # T = 201
-    # the KITTI detectors run no encoder; PV-RCNN(++) take their keypoints by FPS
+    # the 3D detectors run no encoder; PV-RCNN(++) take their keypoints by FPS
+    "kitti_centerpoint": (),
     "kitti_part_a2": (),
     "kitti_pointpillars": (),
     "kitti_pv_rcnn": ("fps",),  # 2048 keypoints from 1024 points a cloud
@@ -4649,18 +4826,26 @@ RECIPE_KERNELS = {
     "modelnet40_pointnext": ("fps",),  # 4 FPS a forward
     "modelnet40_pointmae_pretrain": ("fps",),  # fp32: T = 17 and 65
     "multimodal_fusion_metatransformer": FLASH_PATH,  # T = 2876
+    "nuscenes_centerpoint": (),
     "pavia_hyper_metatransformer": FUSED_PATH,  # T = 104
     # 32 heads of 24: no kernel admits head_dim 24, in either package
     "pcqm4mv2_tokengt": (),
     "pcqm4mv2_tokengt_performer": (),
+    # the point-segmentation baselines run no encoder; three sample by FPS
+    "s3dis_baafnet": ("fps",),  # 4 FPS a forward
     "s3dis_metatransformer": ("fps", *FLASH_PATH),  # 4096 points, T = 1025
+    "s3dis_pointtransformer": ("fps",),  # 4 FPS a forward
+    "s3dis_randlanet": (),  # random decimation
+    "s3dis_stratified": ("fps",),  # 6 FPS a forward
     "scannet_metatransformer": ("fps", *FLASH_PATH),  # 8192 points, T = 2049
     "scanobjectnn_metatransformer": ("fps", *FUSED_PATH),  # T = 257
     "scanobjectnn_simpleview": (),  # depth images and a ResNet: no kernel
+    "semantickitti_randlanet": (),  # 16,384 points a scan, random decimation
     "shapenetpart_metatransformer": ("fps", *FLASH_PATH),  # 2048 points, T = 513
     "smd_anomaly_metatransformer": FUSED_PATH,  # T = 100
     "speechcommands_metatransformer": FUSED_PATH,  # 12 x 21 patches, T = 252
     "uea_metatransformer": FLASH_PATH,  # T = 1751
+    "waymo_centerpoint": (),
     "xray_chest_metatransformer": FUSED_PATH,  # T = 197
 }
 # held against the plain versions (losses, first gradient and update of the
@@ -5130,6 +5315,11 @@ def main() -> None:
                          "against the CPU, the three zoo recipe families' steps against the "
                          "CPU, the three zoo recipes through train_cli and SimpleView's convs "
                          "on the patch GEMM and cuDNN; prints no result")
+    ap.add_argument("--point-seg", action="store_true",
+                    help="only build and run phase_point_seg: the four segmentation "
+                         "baselines' forwards and steps against the CPU and float64 at b = 2 "
+                         "and their YAMLs' batches, #7 at their shapes with times, and the "
+                         "five segmentation recipes through train_cli; prints no result")
     ap.add_argument("--recipes", action="store_true",
                     help="only build and train every ported recipe YAML through train_cli "
                          "at full width (phase_recipes); prints no result")
@@ -5169,6 +5359,9 @@ def main() -> None:
         return
     if args.point_zoo:
         phase_point_zoo(args.seed, dev, args.profile)
+        return
+    if args.point_seg:
+        phase_point_seg(args.seed, dev, args.profile)
         return
     errs = phase_kernels(args.seed, dev)
     phase_autograd(args.seed, dev)
@@ -5217,6 +5410,7 @@ def main() -> None:
     detection_launches = phase_detection(args.seed, dev, args.profile)
     det3d_launches = phase_det3d(args.seed, dev, args.profile, full=False)
     zoo_launches = phase_point_zoo(args.seed, dev, args.profile, full=False)
+    seg_launches = phase_point_seg(args.seed, dev, args.profile, full=False)
     recipe_launches, recipe_errs = phase_recipes(args.seed, dev, args.profile)
     for name, err in recipe_errs.items():
         errs[name] = max(errs[name], err)
@@ -5249,6 +5443,7 @@ def main() -> None:
         **detection_launches,
         **det3d_launches,
         **zoo_launches,
+        **seg_launches,
         **recipe_launches,
     }
     on_path = {  # the kernels each path must have gone through
@@ -5295,6 +5490,9 @@ def main() -> None:
         **{f"zoo_{name}": ("fps",) if name in ZOO_FPS else () for name in ZOO_FAMILIES},
         **{f"zoo_{name}_step": ("fps",) if name in ZOO_FPS else ()
            for name in ZOO_RECIPES.values()},
+        # the segmenters run no encoder; three of them sample by FPS
+        **{f"seg_{name}{part}": ("fps",) if name in SEG_FPS else ()
+           for name in SEG_YAMLS for part in ("", "_step")},
         **{f"recipes_{stem}": kinds for stem, kinds in RECIPE_KERNELS.items()},
         "recipes_imagenet_data": FUSED_KERNELS,
     }

@@ -5,7 +5,8 @@ on the Meta-Transformer backbone). The PPM pools the 1/32 map to 1, 2, 3
 and 6 cells (an antialiased resize, as ``jax.image.resize`` downsamples),
 FPN laterals fuse the four scales, everything is resized to 1/4 and a
 fusion conv and a classifier give the logits. NHWC maps, HWIO weights,
-conv + GroupNorm + ReLU blocks.
+conv + GroupNorm + ReLU blocks, the ReLU's gradient through
+:func:`..ops.gates.act_gate`.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import torch
 
 from metatransformer_tpu_torch.core import device as _device
 from metatransformer_tpu_torch.models.vit_adapter import _to, conv2d, group_norm, resize
+from metatransformer_tpu_torch.ops.gates import gated_relu
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,7 +60,7 @@ def init(cfg: UperNetConfig, generator: torch.Generator,
 
 def _apply_cb(x, p):
     x = conv2d(x, p["w"], p["b"])
-    return torch.relu(group_norm(x, p["gn_scale"], p["gn_bias"]))
+    return gated_relu(group_norm(x, p["gn_scale"], p["gn_bias"]))
 
 
 def apply(params: Dict[str, Any], feats: List[torch.Tensor], cfg: UperNetConfig) -> torch.Tensor:

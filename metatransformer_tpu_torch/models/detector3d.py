@@ -30,6 +30,7 @@ from metatransformer_tpu_torch.core import device as _device
 from metatransformer_tpu_torch.heads.detection2d import _scatter_last
 from metatransformer_tpu_torch.models.vit_adapter import _same_pads, _to, conv2d, group_norm, resize
 from metatransformer_tpu_torch.ops import iou3d, voxelize
+from metatransformer_tpu_torch.ops.gates import gated_relu
 
 Params = Dict[str, Any]
 
@@ -246,14 +247,15 @@ def conv3x3_gemm(x: torch.Tensor, w: torch.Tensor, stride: int = 1) -> torch.Ten
 
 def bev_backbone(params: Params, x: torch.Tensor, cfg) -> torch.Tensor:
     """BaseBEVBackbone: NHWC [B, H, W, C] -> the concat of every block's
-    up, resized to the first's size."""
+    up, resized to the first's size; the ReLUs through
+    :func:`..ops.gates.gated_relu`."""
     ups, target_hw = [], None
     for i, (_, stride) in enumerate(zip(cfg.bev_channels, cfg.bev_strides)):
         for j, blk in enumerate(params[f"block{i}"]):
             x = conv3x3_gemm(x, blk["w"], stride if j == 0 else 1)
-            x = torch.relu(group_norm(x, blk["gn_scale"], blk["gn_bias"]))
+            x = gated_relu(group_norm(x, blk["gn_scale"], blk["gn_bias"]))
         up = params[f"up{i}"]
-        u = torch.relu(group_norm(conv2d(x, up["w"]), up["gn_scale"], up["gn_bias"]))
+        u = gated_relu(group_norm(conv2d(x, up["w"]), up["gn_scale"], up["gn_bias"]))
         if target_hw is None:
             target_hw = tuple(u.shape[1:3])
         elif tuple(u.shape[1:3]) != target_hw:

@@ -15,17 +15,14 @@ vendored comparison baselines, ``PointCloud/openpoints/models/backbone/
 - every max-pool is :func:`pool_max`: the value of ``amax``, whose gradient
   goes to the elements :func:`max_winners` names and splits a tie evenly,
   as ``jnp.max`` (a ball query repeats its first hit in empty slots);
-- every ReLU and leaky ReLU is :func:`_relu` / :func:`_lrelu`: the value of
-  ``torch.relu`` / ``F.leaky_relu``, whose gradient takes slope 1 where
-  :func:`act_gate` says so, as ``jax.nn``'s (at 0: 0 for ReLU, 1 for the
-  leaky one; ``F.leaky_relu``'s own backward takes the slope there).
+- every ReLU and leaky ReLU is :func:`_relu` / :func:`_lrelu`, the gradient
+  through :func:`..ops.gates.act_gate`.
 
-Which element wins a near-tie, and on which side of 0 an activation's
-input falls, are choices at a rounding edge: a few of the millions of
-gates flip between fp32 on two devices or against float64, and each flip
-moves the gradient of a whole BatchNorm channel (0.5% of PointNeXt's tree
-at b = 8). So they sit in those two functions, without gradient, where a
-check can record and replay them.
+Which element wins a near-tie is a choice at a rounding edge, as on which
+side of 0 an activation's input falls: each flip between fp32 on two
+devices or against float64 moves the gradient of a whole BatchNorm
+channel. So it sits in :func:`max_winners`, without gradient, where a check
+can record and replay it.
 
 All four register in :data:`..utils.registry.MODELS` with one classifier
 contract: ``forward(params, points [B, N, 3], cfg) -> logits [B, C]``; each
@@ -40,11 +37,11 @@ from typing import Any, Dict, List, Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from metatransformer_tpu_torch.core import device as _device
 from metatransformer_tpu_torch.models.vit_adapter import _to
 from metatransformer_tpu_torch.ops import point_ops as po
+from metatransformer_tpu_torch.ops.gates import gated
 
 Params = Dict[str, Any]
 
@@ -99,40 +96,9 @@ def pool_max(x: torch.Tensor, dim: int) -> torch.Tensor:
     return _PoolMax.apply(x, max_winners(x.detach(), dim), dim)
 
 
-def act_gate(x: torch.Tensor, slope: float) -> torch.Tensor:
-    """Where an activation passes ``x`` at slope 1, as ``jax.nn``'s
-    gradients do: ``x > 0`` for ReLU, ``x >= 0`` for a leaky ReLU. A bool
-    mask; no gradient."""
-    with torch.no_grad():
-        return x >= 0 if slope else x > 0
-
-
-class _GatedAct(torch.autograd.Function):
-    """``F.leaky_relu(x, slope)`` (``torch.relu`` at slope 0) whose
-    backward takes slope 1 where ``gate`` and ``slope`` elsewhere; it keeps
-    only the bool mask."""
-
-    @staticmethod
-    def forward(ctx, x, gate, slope):
-        ctx.save_for_backward(gate)
-        ctx.slope = slope
-        return torch.relu(x) if slope == 0 else F.leaky_relu(x, slope)
-
-    @staticmethod
-    def backward(ctx, g):
-        (gate,) = ctx.saved_tensors
-        return torch.where(gate, g, g * ctx.slope), None, None
-
-
-def _gated(x: torch.Tensor, slope: float) -> torch.Tensor:
-    if not (torch.is_grad_enabled() and x.requires_grad):
-        return torch.relu(x) if slope == 0 else F.leaky_relu(x, slope)
-    return _GatedAct.apply(x, act_gate(x.detach(), slope), slope)
-
-
 def _relu(x: torch.Tensor) -> torch.Tensor:
-    """``torch.relu``, the gradient through :func:`act_gate`."""
-    return _gated(x, 0.0)
+    """``torch.relu``, the gradient through ``gates.act_gate``."""
+    return gated(x, 0.0)
 
 
 def _mlp(x: torch.Tensor, stack: List[Params], act=_relu) -> torch.Tensor:
@@ -161,8 +127,8 @@ def _head(x: torch.Tensor, params: Params) -> torch.Tensor:
 
 
 def _lrelu(x: torch.Tensor) -> torch.Tensor:
-    """``F.leaky_relu(x, 0.2)``, the gradient through :func:`act_gate`."""
-    return _gated(x, 0.2)
+    """``F.leaky_relu(x, 0.2)``, the gradient through ``gates.act_gate``."""
+    return gated(x, 0.2)
 
 
 def _init_on(device: _device.Device, build) -> Params:

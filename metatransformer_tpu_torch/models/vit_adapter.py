@@ -19,6 +19,10 @@ Three helpers keep XLA's semantics, which plain torch calls do not:
   downsamples and whose bicubic is Keys' a = -0.5: ``F.interpolate`` with
   ``antialias=True``, always.
 
+Every conv + GroupNorm + ReLU block (the stem's here, UperNet's) takes its
+ReLU through :func:`..ops.gates.gated_relu`, so that a check can replay on
+which side of 0 each input fell.
+
 The ViT blocks run through :func:`..core.encoder.block` (``"timm"``) or
 :mod:`..core.beit` (``"beit"``, ``"uniperceiver"``) on the fp32 token
 stream, as the reference's do: each casts to the compute dtype of the
@@ -41,6 +45,7 @@ from metatransformer_tpu_torch.core import device as _device
 from metatransformer_tpu_torch.core import encoder as enc
 from metatransformer_tpu_torch.core.tree import tree_map
 from metatransformer_tpu_torch.ops import ms_deform_attn as msda
+from metatransformer_tpu_torch.ops.gates import gated_relu
 
 
 def _same_pads(size: int, k: int, stride: int) -> Tuple[int, int]:
@@ -58,10 +63,12 @@ def _pad_same(x_nchw: torch.Tensor, k: int, stride: int, value: float = 0.0) -> 
 
 
 def conv2d(x, w, b=None, stride=1, groups=1):
-    """NHWC ``x``, HWIO ``w`` -> NHWC, XLA "SAME" padding."""
+    """NHWC ``x``, HWIO ``w`` -> NHWC, XLA "SAME" padding. The weight is
+    handed over as a contiguous OIHW copy: PyTorch 2.11's float64 CPU
+    convolution backward (``slow_conv2d``) refuses the permuted view."""
     k = w.shape[0]
     xc = _pad_same(x.permute(0, 3, 1, 2), k, stride)
-    out = F.conv2d(xc, w.permute(3, 2, 0, 1), b, stride=stride, groups=groups)
+    out = F.conv2d(xc, w.permute(3, 2, 0, 1).contiguous(), b, stride=stride, groups=groups)
     return out.permute(0, 2, 3, 1)
 
 
@@ -165,7 +172,7 @@ def _spm_init(cfg: ViTAdapterConfig, randn) -> Dict[str, Any]:
 
 def _cb(x, p, stride=1):
     x = conv2d(x, p["w"], p["b"], stride=stride)
-    return torch.relu(group_norm(x, p["gn_scale"], p["gn_bias"]))
+    return gated_relu(group_norm(x, p["gn_scale"], p["gn_bias"]))
 
 
 def _spm_apply(params, images):

@@ -33,6 +33,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from metatransformer_tpu_torch.ops.gates import gated_relu
+
 SENTINEL = torch.iinfo(torch.int64).max
 
 
@@ -159,7 +161,8 @@ def sparse_conv3d(st: SparseTensor, weight: torch.Tensor, stride: Tuple[int, int
 def batch_norm_relu(st: SparseTensor, scale: torch.Tensor, bias: torch.Tensor,
                     eps: float = 1e-3, relu: bool = True) -> SparseTensor:
     """BatchNorm1d over the active voxels (masked batch statistics), then
-    ReLU: the reference's norm_fn (+ ReLU) after every sparse conv."""
+    ReLU (:func:`.gates.gated_relu`): the reference's norm_fn (+ ReLU) after
+    every sparse conv."""
     f = st.features.to(torch.promote_types(st.features.dtype, torch.float32))
     m = st.valid.to(f.dtype)[:, None]
     cnt = m.sum().clamp_min(1.0)
@@ -167,7 +170,7 @@ def batch_norm_relu(st: SparseTensor, scale: torch.Tensor, bias: torch.Tensor,
     var = ((f - mean).square() * m).sum(0) / cnt
     f = (f - mean) * torch.rsqrt(var + eps) * scale + bias
     if relu:
-        f = torch.relu(f)
+        f = gated_relu(f)
     return dataclasses.replace(st, features=(f * m).to(st.features.dtype))
 
 

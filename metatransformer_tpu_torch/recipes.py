@@ -706,6 +706,11 @@ def build_segmentation(cfg, generator, smoke=False, device=None):
     )
 
 
+def _seg_ce(logits, labels):
+    """Softmax cross-entropy over the class axis, mean over every point."""
+    return F.cross_entropy(logits.movedim(-1, 1), labels.long())
+
+
 def build_point_seg(cfg, generator, smoke=False, device=None):
     """Point-cloud semantic / part segmentation (S3DIS 13-class rooms,
     ShapeNetPart 50 parts; ``PointCloud/examples/segmentation`` +
@@ -744,10 +749,6 @@ def build_point_seg(cfg, generator, smoke=False, device=None):
         return point_segmenter.forward(
             p, x["points"], mcfg, features=x.get("features"), precision=enc.BF16,
         )
-
-    def seg_ce(logits, labels):
-        # softmax cross-entropy over the class axis, mean over every point
-        return F.cross_entropy(logits.movedim(-1, 1), labels.long())
 
     shapenetpart = m.get("dataset") == "shapenetpart"
 
@@ -794,20 +795,107 @@ def build_point_seg(cfg, generator, smoke=False, device=None):
             return {"ins_miou": 100.0 * agg["ins_miou"], "cls_miou": 100.0 * agg["cls_miou"]}
 
     return Recipe(
-        params, forward, synth, loss_fn=seg_ce, classification=False,
+        params, forward, synth, loss_fn=_seg_ce, classification=False,
         best_mode="min", eval_metric=eval_metric,
     )
 
 
+def _point_seg_synth(n_points: int, num_classes: int, in_channels: int = 3):
+    """Standard-normal clouds [B, N, 3] (and features where the model
+    takes more than the coordinates) with uniform labels, the reference's
+    draws."""
+    def synth(batch_size, n_batches, seed):
+        rng = np.random.default_rng(seed)
+        for _ in range(n_batches):
+            batch = {"points": rng.standard_normal((batch_size, n_points, 3)).astype(np.float32)}
+            if in_channels > 3:
+                batch["features"] = rng.standard_normal(
+                    (batch_size, n_points, in_channels)).astype(np.float32)
+            yield {"input": batch,
+                   "label": rng.integers(0, num_classes, (batch_size, n_points)).astype(np.int64)}
+
+    return synth
+
+
+def seg_baseline_config(cfg, smoke: bool = False):
+    """(model config, points a cloud) of a RandLA-Net / BAAF-Net /
+    Stratified Transformer YAML, the reference's smoke geometry where
+    ``smoke``."""
+    from metatransformer_tpu_torch.utils.registry import MODELS
+
+    m = cfg.model
+    name, ncls = m.NAME, m.num_classes
+    if smoke:
+        from metatransformer_tpu_torch.models import baafnet, randlanet, stratified_transformer
+
+        if name == "RandLANet":
+            mcfg = randlanet.RandLANetConfig(num_classes=ncls, d_in=3, num_neighbors=8,
+                                             enc_dims=(8, 16), head_dims=(16,))
+        elif name == "StratifiedTransformer":
+            mcfg = stratified_transformer.StratifiedConfig(
+                num_classes=ncls, in_channels=3, channels=(8, 8, 16), depths=(1, 1, 2),
+                num_heads=(1, 2, 2), k=8, n_kernel_pts=5)
+        else:
+            mcfg = baafnet.BAAFNetConfig(num_classes=ncls, d_in=3, k=8, dims=(4, 8, 16))
+        return mcfg, 64
+    mod = MODELS.get(name)
+    if name == "StratifiedTransformer":
+        mcfg = mod.Config(num_classes=ncls, in_channels=m.get("d_in", 3))
+    else:
+        mcfg = mod.Config(num_classes=ncls, d_in=m.get("d_in", 3))
+    return mcfg, cfg.train.get("num_points", 4096)
+
+
 def _build_seg_baseline(cfg, generator, smoke=False, device=None):
     """RandLA-Net / BAAF-Net / Stratified Transformer segmentation
-    baselines."""
-    _not_ported(f"the {cfg.model.NAME} segmentation recipe (_build_seg_baseline)", _ITEM_9)
+    baselines (openpoints ``randlenet.py`` / ``baafnet.py`` /
+    ``Stratified_transformer.py``), looked up in the model registry."""
+    from metatransformer_tpu_torch.utils.registry import MODELS
+
+    device = _device.resolve(device)
+    mod = MODELS.get(cfg.model.NAME)
+    mcfg, n_points = seg_baseline_config(cfg, smoke)
+    params = mod.init(mcfg, generator, device)
+
+    def forward(p, x, gen):
+        x = batch_to_device(x, device)
+        return mod.forward(p, x["points"], mcfg, features=x.get("features"))
+
+    return Recipe(params, forward, _point_seg_synth(n_points, cfg.model.num_classes),
+                  loss_fn=_seg_ce, classification=False, best_mode="min")
+
+
+def point_transformer_seg_config(cfg, smoke: bool = False):
+    """(model config, points a cloud) of a PointTransformerSeg YAML."""
+    from metatransformer_tpu_torch.models import point_transformer_seg as pts
+
+    m = cfg.model
+    if smoke:
+        return pts.PointTransformerSegConfig(
+            num_classes=m.num_classes, in_channels=3, width=8, blocks=(2, 2, 2),
+            strides=(1, 4, 4), nsample=(8, 8, 8), share_planes=4), 64
+    return pts.PointTransformerSegConfig(
+        num_classes=m.num_classes, in_channels=m.get("tokenizer", {}).get("in_channels", 3),
+        width=m.get("width", 32)), cfg.train.get("num_points", 2048)
 
 
 def _build_point_transformer_seg(cfg, generator, smoke=False, device=None):
-    """PointTransformer vector-attention segmentation baseline."""
-    _not_ported("the PointTransformerSeg recipe (_build_point_transformer_seg)", _ITEM_9)
+    """PointTransformer vector-attention segmentation baseline (openpoints
+    ``pointtransformer.py`` PTSeg, the S3DIS launcher surface)."""
+    from metatransformer_tpu_torch.utils.registry import MODELS
+
+    device = _device.resolve(device)
+    mod = MODELS.get("PointTransformerSeg")
+    mcfg, n_points = point_transformer_seg_config(cfg, smoke)
+    params = mod.init(mcfg, generator, device)
+
+    def forward(p, x, gen):
+        x = batch_to_device(x, device)
+        return mod.forward(p, x["points"], mcfg, features=x.get("features"))
+
+    return Recipe(params, forward,
+                  _point_seg_synth(n_points, cfg.model.num_classes, mcfg.in_channels),
+                  loss_fn=_seg_ce, classification=False, best_mode="min")
 
 
 def build_mask2former(cfg, generator, smoke=False, device=None):
@@ -1151,6 +1239,70 @@ def build_second(cfg, generator, smoke=False, device=None):
     return _det3d_recipe(params, forward, scfg.pc_range, scfg.num_classes, smoke)
 
 
+def centerpoint_config(cfg, smoke: bool = False):
+    """The CenterPoint config of a KITTI / Waymo (``CenterPoint``) or
+    nuScenes (``CenterPointNusc``: class-group heads and velocity) YAML, the
+    reference's smoke geometry where ``smoke``."""
+    from metatransformer_tpu_torch.models import centerpoint as cp
+
+    m = cfg.model
+    nusc = m.NAME == "CenterPointNusc"
+    extra: Dict[str, Any] = {}
+    if nusc:
+        extra = dict(class_groups=tuple(tuple(g) for g in m.class_groups), velocity=True,
+                     code_weights=tuple(m.code_weights), loc_weight=m.get("loc_weight", 0.25))
+    if smoke:
+        return dataclasses.replace(
+            cp.CenterPointConfig(), spatial_shape=(25, 64, 64), pc_range=_SMOKE_RANGE,
+            voxel_size=(0.1, 0.1, 0.2), max_voxels=256, widths=(4, 4, 8, 8, 8, 8),
+            bev_channels=(8, 16), up_channels=8, bev_layer_num=2, shared_ch=8,
+            post_center_range=(-10, -10, -10, 10, 10, 10),
+            num_classes=m.num_classes if nusc else m.get("num_classes", 3), **extra)
+    if nusc:
+        extra.update(velocity=bool(m.get("velocity", True)),
+                     score_thresh=m.get("score_thresh", 0.1), nms_thresh=m.get("nms_thresh", 0.2),
+                     post_center_range=tuple(m.post_center_range))
+    return dataclasses.replace(
+        cp.CenterPointConfig(), voxel_size=tuple(m.voxel_size), pc_range=tuple(m.pc_range),
+        spatial_shape=tuple(m.spatial_shape), max_voxels=m.max_voxels,
+        point_features=m.get("point_features", 4), num_classes=m.num_classes,
+        feature_map_stride=m.get("feature_map_stride", 8), max_objs=m.get("max_objs", 500),
+        gaussian_overlap=m.get("gaussian_overlap", 0.1), min_radius=m.get("min_radius", 2),
+        **extra)
+
+
+def _padded_columns(x: torch.Tensor, n: int) -> torch.Tensor:
+    """``x`` with zero columns appended up to ``n`` on its last axis."""
+    if x.shape[-1] >= n:
+        return x
+    return torch.cat([x, x.new_zeros(*x.shape[:-1], n - x.shape[-1])], -1)
+
+
+def build_centerpoint(cfg, generator, smoke=False, device=None):
+    """CenterPoint (the residual sparse backbone and the centre head): KITTI
+    and Waymo (``CenterPoint``), nuScenes (``CenterPointNusc``: its
+    synthetic labels shifted to 0-based and its boxes given zero velocity,
+    as the reference's)."""
+    from metatransformer_tpu_torch.models import centerpoint as cp
+
+    device = _device.resolve(device)
+    mcfg = centerpoint_config(cfg, smoke)
+    nusc = cfg.model.NAME == "CenterPointNusc"
+    params = cp.init(mcfg, generator, device)
+
+    def forward(p, x, gen):
+        x = batch_to_device(x, device)
+        # the synthetic points are (x, y, z, intensity): the rest are zeros
+        pts = _padded_columns(x["points"], mcfg.point_features)
+        gt, labels = x["gt_boxes"], x["gt_labels"]
+        if nusc:
+            gt = _padded_columns(gt, 9) if mcfg.velocity else gt
+            labels = torch.clamp(labels - 1, 0, mcfg.num_classes - 1)
+        return cp.detection_loss(cp.forward(p, pts, mcfg), gt, labels, x["gt_valid"], mcfg)[0]
+
+    return _det3d_recipe(params, forward, mcfg.pc_range, mcfg.num_classes, smoke)
+
+
 # the two-stage detectors the port has; the others raise naming item 9
 _TWO_STAGE_CONFIGS = {"voxel_rcnn": "VoxelRCNNConfig", "pv_rcnn": "PVRCNNConfig",
                       "pv_rcnn_pp": "PVRCNNPPConfig", "part_a2": "PartA2Config",
@@ -1415,9 +1567,9 @@ DET3D_BUILDERS = {
     "PVRCNNPP": _two_stage_builder("pv_rcnn_pp"),
     "PartA2": _two_stage_builder("part_a2"),
     "SECONDIoU": _two_stage_builder("second_iou"),
-    **{name: _det3d_not_ported(name)
-       for name in ("CenterPoint", "CenterPointNusc", "PointRCNN", "IASSD", "CaDDN",
-                    "MDFSECONDNet")},
+    "CenterPoint": build_centerpoint,
+    "CenterPointNusc": build_centerpoint,
+    **{name: _det3d_not_ported(name) for name in ("PointRCNN", "IASSD", "CaDDN", "MDFSECONDNet")},
 }
 
 

@@ -118,6 +118,7 @@ def _register_builtins() -> None:
         "SECONDNetIoU": "second_iou",  # SECOND + IoU confidence head (SSL workhorse)
         "PartA2Net": "part_a2",  # part-aware two-stage detector (sparse UNet)
         "PVRCNNPlusPlus": "pv_rcnn_pp",  # SPC keypoints + VectorPool aggregation
+        "CenterPoint": "centerpoint",  # anchor-free centre-heatmap detector
         "MetaTransformerMultiView": "point_multiview",
     }
     MODELS._lazy.update({name: _module(mod) for name, mod in modules.items()})
@@ -138,12 +139,15 @@ def _register_builtins() -> None:
         "curvenet": ("CurveNet",),
         "simpleview": ("SimpleView",),
         "point_mae": ("MaskedPointViT",),
+        "randlanet": ("RandLANet",),
+        "baafnet": ("BAAFNet",),
+        "point_transformer_seg": ("PointTransformerSeg",),
+        "stratified_transformer": ("StratifiedTransformer",),
     }
     MODELS._lazy.update({name: _entry(mod, name) for mod, names in hooks.items()
                          for name in names})
     MODELS._not_ported.update({name: _ITEM_9 for name in (
-        "CenterPoint", "PointRCNN", "IASSD", "CaDDN", "MDFSECONDNet", "MDFCenterPoint",
-        "RandLANet", "BAAFNet", "PointTransformerSeg", "StratifiedTransformer")})
+        "PointRCNN", "IASSD", "CaDDN", "MDFSECONDNet", "MDFCenterPoint")})
 
 
 _register_builtins()

@@ -1,18 +1,23 @@
-"""Time the 3x3 BEV convs of SECOND's backbone (b = 1, 2, 4) and of
-PointPillars' (its recipe's b = 32) on the card (fp32, TF32 off): cuDNN as
+"""Time the 3x3 BEV convs of SECOND's backbone (b = 1, 2, 4), of
+PointPillars' (its recipe's b = 32) and of CenterPoint's head (its shared
+512 -> 64 conv and a separate head's 64 -> 64 and 64 -> 3 convs on the
+KITTI, nuScenes and Waymo BEV maps at their YAMLs' batches 2, 4, 4) on the
+card (fp32, TF32 off): cuDNN as
 ``vit_adapter.conv2d`` calls it (NHWC permuted to an NCHW view), cuDNN on a
 contiguous NCHW input, and the patch GEMM of ``detector3d.conv3x3_gemm``
 that ``detector3d.bev_backbone`` runs; each with
 ``torch.backends.cudnn.benchmark`` off and on.
 
-    python scripts/bench_bev_conv.py
+    python scripts/bench_bev_conv.py [centerpoint]
 
-Prints one line a shape: ms of one forward (CUDA events around 10 calls,
+(``centerpoint``: CenterPoint's cases only.) Prints the card's name and
+power limit, then one line a shape: ms of one forward (CUDA events around 10 calls,
 over the count), of a forward and backward on each of the two paths the
 backbone could take, and the peak memory each forward and backward
 allocates above its inputs.
 """
 
+import subprocess
 import sys
 
 import torch
@@ -27,7 +32,14 @@ SECOND = ((200, 176, 256, 128, 1), (200, 176, 128, 128, 1), (200, 176, 128, 256,
           (100, 88, 256, 256, 1))
 POINTPILLARS = ((496, 432, 64, 64, 2), (248, 216, 64, 64, 1), (248, 216, 64, 128, 2),
                 (124, 108, 128, 128, 1), (124, 108, 128, 256, 2), (62, 54, 256, 256, 1))
-CASES = [("SECOND", b, SECOND) for b in (1, 2, 4)] + [("PointPillars", 32, POINTPILLARS)]
+# CenterPoint's shared conv (2 x 256 BEV channels -> 64) and one separate
+# head's two convs, on the BEV map of each YAML's grid (1/8 of it)
+CENTERPOINT = [(f"CenterPoint {name}", b, ((h, w, 512, 64, 1), (h, w, 64, 64, 1),
+                                            (h, w, 64, 3, 1)))
+               for name, b, h, w in (("KITTI", 2, 200, 176), ("nuScenes", 4, 128, 128),
+                                     ("Waymo", 4, 188, 188))]
+CASES = ([("SECOND", b, SECOND) for b in (1, 2, 4)] + [("PointPillars", 32, POINTPILLARS)]
+         + CENTERPOINT)
 
 
 def timed(fn, reps: int = 10) -> float:
@@ -59,10 +71,12 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     g = torch.Generator().manual_seed(0)
-    print(torch.cuda.get_device_name(0), flush=True)
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip(), flush=True)
+    cases = CENTERPOINT if sys.argv[1:] == ["centerpoint"] else CASES
     for bench in (False, True):
         torch.backends.cudnn.benchmark = bench
-        for model, b, shapes in CASES:
+        for model, b, shapes in cases:
             for h, w, cin, cout, s in shapes:
                 x = torch.randn(b, h, w, cin, generator=g).to(dev)
                 wt = (torch.randn(3, 3, cin, cout, generator=g) * 0.05).to(dev)

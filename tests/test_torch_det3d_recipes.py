@@ -1,6 +1,7 @@
-"""The port's seven KITTI 3D detection recipes (recipes.py: PointPillars,
-SECOND, Voxel R-CNN, PV-RCNN, SECOND-IoU, Part-A2 and PV-RCNN++) against
-the JAX package's at --smoke geometry on the CPU, FP32:
+"""The port's ten 3D detection recipes (recipes.py: the KITTI PointPillars,
+SECOND, Voxel R-CNN, PV-RCNN, SECOND-IoU, Part-A2 and PV-RCNN++, and
+CenterPoint on KITTI, nuScenes and Waymo) against the JAX package's at
+--smoke geometry on the CPU, FP32:
 
 - ``synth`` batches are bit-equal to JAX's;
 - the parameter trees have the same keys and shapes as the reference's
@@ -10,7 +11,7 @@ the JAX package's at --smoke geometry on the CPU, FP32:
 - a detector that ``recipes._two_stage_builder`` does not know raises
   naming ROADMAP item 9.
 
-tests/test_torch_train_cli.py trains each of the seven one step through
+tests/test_torch_train_cli.py trains each of the ten one step through
 ``train_cli``.
 """
 
@@ -25,6 +26,7 @@ import torch
 
 from metatransformer_tpu import recipes as jrecipes
 from metatransformer_tpu.configs import load_config as jload_config
+from metatransformer_tpu.models import centerpoint as jcp
 from metatransformer_tpu.models import detector3d as jdet
 from metatransformer_tpu.models import part_a2 as jpa
 from metatransformer_tpu.models import pv_rcnn as jpv
@@ -45,7 +47,8 @@ LOSS_RTOL = 1e-5
 JAX_INIT = {"kitti_pointpillars.yaml": jdet, "kitti_second.yaml": jsecond,
             "kitti_voxel_rcnn.yaml": jvr, "kitti_pv_rcnn.yaml": jpv,
             "kitti_second_iou.yaml": jsi, "kitti_part_a2.yaml": jpa,
-            "kitti_pv_rcnn_pp.yaml": jpp}
+            "kitti_pv_rcnn_pp.yaml": jpp, "kitti_centerpoint.yaml": jcp,
+            "nuscenes_centerpoint.yaml": jcp, "waymo_centerpoint.yaml": jcp}
 
 
 def _path(name):

@@ -52,6 +52,7 @@ from metatransformer_tpu_torch.core.tree import leaves_with_path
 from metatransformer_tpu_torch.models import point_baselines as pb
 from metatransformer_tpu_torch.models import point_baselines2 as pb2
 from metatransformer_tpu_torch.models import simpleview as sv
+from metatransformer_tpu_torch.ops import gates
 from metatransformer_tpu_torch.utils.registry import MODELS
 from tests.test_torch_detector3d import port_loss_and_grads
 from tests.test_torch_vit_adapter import perturb
@@ -228,8 +229,8 @@ def test_pooled_and_gated_gradients_match_jax(op):
     np.testing.assert_array_equal(xt.grad.numpy(), np.asarray(vjp(jnp.asarray(w))[0]))
     # the choice taken from another input: its gradient, this input's value
     other = x + np.random.default_rng(2).uniform(-0.5, 0.5, x.shape).astype(np.float32)
-    target = "max_winners" if op == "pool_max" else "act_gate"
-    with mock.patch.object(pb, target, lambda t, *a, _f=getattr(pb, target): _f(
+    owner, target = (pb, "max_winners") if op == "pool_max" else (gates, "act_gate")
+    with mock.patch.object(owner, target, lambda t, *a, _f=getattr(owner, target): _f(
             torch.tensor(other), *a)):
         xt = torch.tensor(x, requires_grad=True)
         port_fn(xt).backward(torch.tensor(w))

@@ -11,13 +11,16 @@ ported recipe YAML at --smoke geometry on the CPU:
 - ``loss_fn`` matches at 1e-5 on fixed arrays.
 
 The four COCO detection recipes are held in
-tests/test_torch_detection_recipes.py, the seven KITTI ones (PointPillars,
-SECOND, Voxel R-CNN, PV-RCNN, SECOND-IoU, Part-A2, PV-RCNN++) in
-tests/test_torch_det3d_recipes.py. The three point-zoo recipes (PointNeXt,
-CurveNet, SimpleView; FP32) are held here: synth, trees, and the first
+tests/test_torch_detection_recipes.py, the ten 3D ones (PointPillars,
+SECOND, Voxel R-CNN, PV-RCNN, SECOND-IoU, Part-A2, PV-RCNN++ and the three
+CenterPoint YAMLs) in tests/test_torch_det3d_recipes.py. The three
+point-zoo recipes (PointNeXt, CurveNet, SimpleView; FP32) and the five
+point-segmentation ones (RandLA-Net, BAAF-Net, PointTransformer,
+Stratified Transformer; FP32) are held here: synth, trees, and the first
 step's logits at 1e-4 (as the MAE losses) and loss at 1e-5, with the
-port's weights given to both. The 13 YAMLs of families the port does not have
-raise NotImplementedError naming their ROADMAP item.
+port's weights given to both (RandLA-Net with JAX's permutation). The 5
+YAMLs of families the port does not have raise NotImplementedError naming
+their ROADMAP item.
 """
 
 import functools
@@ -64,23 +67,26 @@ PORTED = [
 UNPORTED = {
     "imagenet_moe_metatransformer.yaml": "item 8",
     **{name: "item 9" for name in (
-        "kitti_caddn.yaml", "kitti_centerpoint.yaml", "kitti_iassd.yaml",
-        "kitti_point_rcnn.yaml", "mdf_waymo_nusc_second.yaml", "nuscenes_centerpoint.yaml",
-        "waymo_centerpoint.yaml", "s3dis_baafnet.yaml", "s3dis_pointtransformer.yaml",
-        "s3dis_randlanet.yaml", "s3dis_stratified.yaml", "semantickitti_randlanet.yaml",
+        "kitti_caddn.yaml", "kitti_iassd.yaml", "kitti_point_rcnn.yaml",
+        "mdf_waymo_nusc_second.yaml",
     )},
 }
 # the COCO detection recipes, held in tests/test_torch_detection_recipes.py
 DETECTION = ("coco_cascade_rcnn_metatransformer.yaml", "coco_htcpp_metatransformer.yaml",
              "coco_mask_rcnn_metatransformer.yaml",
              "coco_upgraded_mask_rcnn_metatransformer.yaml")
-# the KITTI detection recipes, held in tests/test_torch_det3d_recipes.py
-DET3D = ("kitti_part_a2.yaml", "kitti_pointpillars.yaml", "kitti_pv_rcnn.yaml",
-         "kitti_pv_rcnn_pp.yaml", "kitti_second.yaml", "kitti_second_iou.yaml",
-         "kitti_voxel_rcnn.yaml")
+# the 3D detection recipes (KITTI, and CenterPoint's nuScenes and Waymo),
+# held in tests/test_torch_det3d_recipes.py
+DET3D = ("kitti_centerpoint.yaml", "kitti_part_a2.yaml", "kitti_pointpillars.yaml",
+         "kitti_pv_rcnn.yaml", "kitti_pv_rcnn_pp.yaml", "kitti_second.yaml",
+         "kitti_second_iou.yaml", "kitti_voxel_rcnn.yaml", "nuscenes_centerpoint.yaml",
+         "waymo_centerpoint.yaml")
 # the point-classification zoo's recipes (FP32), held below
 POINT_ZOO = ("modelnet40_curvenet.yaml", "modelnet40_pointnext.yaml",
              "scanobjectnn_simpleview.yaml")
+# the point-segmentation baselines' recipes (FP32), held below
+POINT_SEG = ("s3dis_baafnet.yaml", "s3dis_pointtransformer.yaml", "s3dis_randlanet.yaml",
+             "s3dis_stratified.yaml", "semantickitti_randlanet.yaml")
 MAE = ("kinetics400_videomae_pretrain.yaml", "modelnet40_pointmae_pretrain.yaml")
 MASK2FORMER = ("ade20k_mask2former_metatransformer.yaml", "coco_mask2former_metatransformer.yaml")
 GRAPH = ("pcqm4mv2_tokengt.yaml", "pcqm4mv2_tokengt_performer.yaml")
@@ -113,9 +119,10 @@ def test_the_ported_list_is_exact():
     """Every shipped recipe is either ported or named unported: exact
     counts, so a new YAML or a newly ported family shows here."""
     every = sorted(n for n in os.listdir(CONFIG_DIR) if n.endswith(".yaml") and n != "default.yaml")
-    assert len(PORTED) == 28 and len(DETECTION) == 4 and len(DET3D) == 7
-    assert len(POINT_ZOO) == 3 and len(UNPORTED) == 13
-    assert sorted(PORTED + list(DETECTION) + list(DET3D) + list(POINT_ZOO)
+    assert len(PORTED) == 28 and len(DETECTION) == 4 and len(DET3D) == 10
+    assert len(POINT_ZOO) == 3 and len(POINT_SEG) == 5 and len(UNPORTED) == 5
+    assert len(PORTED + list(DETECTION) + list(DET3D) + list(POINT_ZOO) + list(POINT_SEG)) == 50
+    assert sorted(PORTED + list(DETECTION) + list(DET3D) + list(POINT_ZOO) + list(POINT_SEG)
                   + list(UNPORTED)) == every
 
 
@@ -276,6 +283,72 @@ def test_point_zoo_first_step_matches_jax(name):
     np.testing.assert_allclose(loss, jloss, rtol=1e-5)
     np.testing.assert_allclose(
         float(step_lib.cross_entropy_loss(got, torch.tensor(batch["label"]))), jloss, rtol=1e-4)
+
+
+@functools.lru_cache(maxsize=None)
+def _seg_pair(name):
+    """(JAX recipe, port recipe, JAX init's shapes) of a point-segmentation
+    YAML at --smoke geometry, the JAX recipe's init returning the port's
+    weights (traced for shapes only), as ``_zoo_pair``."""
+    from metatransformer_tpu.models import (  # noqa: F401  (their registry hooks)
+        baafnet, point_transformer_seg, randlanet, stratified_transformer)
+    from metatransformer_tpu.utils.registry import MODELS as JMODELS
+
+    rec = recipes.build(load_config(_path(name)), torch.Generator().manual_seed(0),
+                        smoke=True, device="cpu")
+    weights, shapes = convert.to_numpy(rec.params), {}
+    entry = JMODELS.get(load_config(_path(name)).model.NAME)
+
+    def init(cfg, key):
+        shapes["tree"] = jax.eval_shape(lambda k: real_init(cfg, k), key)
+        return jax.tree.map(jnp.asarray, weights)
+
+    real_init = entry.init
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(entry, "init", init)
+        mp.setattr(point_transformer_seg, "init", init)  # its recipe calls the module's init
+        jrec = jrecipes.build(jload_config(_path(name)), jax.random.PRNGKey(0), smoke=True)
+    return jrec, rec, shapes["tree"]
+
+
+@pytest.mark.parametrize("name", POINT_SEG)
+def test_point_seg_synth_and_trees_equal_jax(name):
+    jrec, rec, shapes = _seg_pair(name)
+    for g, w in zip(_batches(rec, 2), jrec.synth(BATCH, 2, 3)):
+        assert g["input"].keys() == w["input"].keys()
+        for k in g["input"]:
+            np.testing.assert_array_equal(g["input"][k], np.asarray(w["input"][k]))
+            assert g["input"][k].dtype == np.float32
+        np.testing.assert_array_equal(g["label"], np.asarray(w["label"]))
+        assert g["label"].dtype == np.int64
+    got = leaves_with_path(rec.params)
+    want = leaves_with_path(jax.tree.map(lambda a: np.zeros(a.shape, a.dtype), shapes))
+    assert [(p, tuple(a.shape)) for p, a in got] == [(p, b.shape) for p, b in want]
+
+
+@pytest.mark.parametrize("name", POINT_SEG)
+def test_point_seg_first_step_matches_jax(name, monkeypatch):
+    """The first synthetic batch's per-point logits (FP32) at 1e-4 and
+    their cross-entropy at 1e-5, the same weights in both; RandLA-Net's
+    permutation is the reference's (its key 0)."""
+    from metatransformer_tpu_torch.models import randlanet
+
+    jrec, rec, _ = _seg_pair(name)
+    batch = _batches(rec, 1)[0]
+    n = batch["input"]["points"].shape[1]
+    perm = torch.tensor(np.asarray(jax.random.permutation(jax.random.PRNGKey(0), n)))
+    monkeypatch.setattr(randlanet, "default_perm", lambda *_: perm)
+    want = np.asarray(jax.jit(jrec.forward)(jax.tree.map(jnp.asarray, _np(jrec.params)),
+                                            jax.tree.map(jnp.asarray, batch["input"]), KEY))
+    with torch.no_grad():
+        got = rec.forward(convert.from_numpy(_np(jrec.params), "cpu"), batch["input"], None)
+    assert got.shape == (BATCH, n, load_config(_path(name)).model.num_classes)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
+    jloss = float(jrec.loss_fn(jnp.asarray(want), jnp.asarray(batch["label"])))
+    np.testing.assert_allclose(float(rec.loss_fn(torch.tensor(want), torch.tensor(batch["label"]))),
+                               jloss, rtol=1e-5)
+    np.testing.assert_allclose(float(rec.loss_fn(got, torch.tensor(batch["label"]))), jloss,
+                               rtol=1e-4)
 
 
 @pytest.mark.parametrize("name", sorted(UNPORTED))

@@ -4,10 +4,21 @@ perturbed JAX weights carried across: logits and ``seg_loss`` at 1e-4,
 ``tta_inference`` at 1e-4, and one training step of the recipe as the CLI
 builds it (its optimizer, frozen keys and layer decay) at 1e-5.
 
+The UperNet step is held against the reference run in float64 (its encoder
+under a float64 precision policy), with the
+port's ReLU gates (``gates.act_gate``) taken from its own float64 run
+of the same loss and replayed in its fp32 step: one of the 262,144 gates of
+``fpn0`` flips in the port's fp32 on some CPUs, which alone moved the
+``fpn0/w`` gradient 3.1e-3 of its largest from float64 (the reference's
+fp32 stood 8.2e-7 off; with the gates replayed the port's fp32 stands
+8.7e-6 from the float64 reference, its furthest leaf).
+
 The step runs under the FP32 policy in both packages (``enc.BF16`` patched
 to ``enc.FP32`` where the recipes read it): bf16 rounds differently in XLA
 and in torch, so only FP32 can be held at 1e-5.
 """
+
+from unittest import mock
 
 import jax
 import jax.numpy as jnp
@@ -29,6 +40,7 @@ from metatransformer_tpu_torch.core import encoder as enc
 from metatransformer_tpu_torch.core.tree import leaves_with_path
 from metatransformer_tpu_torch.heads import upernet
 from metatransformer_tpu_torch.models import segmentor
+from metatransformer_tpu_torch.ops import gates
 from tests.test_torch_vit_adapter import close, images, perturb, smoke_adapter
 
 torch.set_num_threads(1)
@@ -96,15 +108,54 @@ def test_tta_inference_matches_jax(seg_run):
 # --------------------------------------------------------------------------
 
 
-def recipe_step(name: str, monkeypatch, wrap_port_forward=None):
+def float64_gates(recipe, start, batch):
+    """The ReLU gates (``gates.act_gate``) of the port's recipe loss
+    and its gradient at the numpy parameters ``start`` on ``batch``,
+    computed in float64 (parameters, inputs and the precision policy), in
+    the order the forward asks for them."""
+    def wide(a):
+        a = np.asarray(a)
+        return a.astype(np.float64) if a.dtype == np.float32 else a
+
+    params = convert.from_numpy(jax.tree.map(wide, start), "cpu")
+    for _, leaf in leaves_with_path(params):
+        leaf.requires_grad_(True)
+    x = {k: torch.tensor(wide(v)) for k, v in batch["input"].items()}
+    kept, gate = [], gates.act_gate
+    with mock.patch.object(gates, "act_gate", lambda t, slope: kept.append(
+            gate(t, slope)) or kept[-1]), mock.patch.object(enc, "BF16", enc.Precision(
+                torch.float64)):
+        recipe.forward(params, x, torch.Generator().manual_seed(0)).backward()
+    assert kept
+    return kept
+
+
+def replay(monkeypatch, module, name, kept):
+    """``module.name`` answers each call with the next of ``kept`` (same
+    shape); returns a check that every one was taken."""
+    it = iter(kept)
+
+    def next_kept(t, *_):
+        got = next(it)
+        assert got.shape == t.shape, (name, got.shape, t.shape)
+        return got
+
+    monkeypatch.setattr(module, name, next_kept)
+    return lambda: next(it, None) is None
+
+
+def recipe_step(name: str, monkeypatch, wrap_port_forward=None, f64: bool = False):
     """One AdamW step of the YAML's smoke recipe at batch 2 under FP32: the
     port's through ``train_cli.setup`` (its Trainer, optimizer, schedule,
     frozen keys), JAX's as its CLI composes ``optim.build`` and
     ``make_train_step``, from the same perturbed weights and batch. Returns
     (port loss, JAX loss, port trainer, port start, JAX grads, JAX updates,
-    the config) with trees as numpy."""
+    the config) with trees as numpy. With ``f64`` JAX's loss, gradients and
+    update are float64's (its encoder under a float64 precision policy), and the port's fp32 step replays the ReLU gates of
+    its own float64 run (:func:`float64_gates`)."""
     monkeypatch.setattr(enc, "BF16", enc.FP32)
-    monkeypatch.setattr(jenc, "BF16", jenc.FP32)
+    monkeypatch.setattr(jenc, "BF16", jenc.Precision(jnp.float64, jax.lax.Precision.HIGHEST)
+                        if f64 else jenc.FP32)
     path = f"{CONFIG_DIR}/{name}"
     cfg = jload_config(path)
     jrec = jrecipes.build(cfg, jax.random.PRNGKey(0), smoke=True)
@@ -121,18 +172,31 @@ def recipe_step(name: str, monkeypatch, wrap_port_forward=None):
     start = convert.to_numpy(trainer.trainable)
     if wrap_port_forward is not None:
         wrap_port_forward()
+    if f64:
+        all_taken = replay(monkeypatch, gates, "act_gate",
+                           float64_gates(session.recipe, start, batch))
     port_loss = trainer.train_epoch([batch], torch.Generator().manual_seed(0))["loss"]
+    if f64:
+        assert all_taken()
 
     tx = joptim.build(cfg.train.optimizer, cfg.train.lr, weight_decay=cfg.train.weight_decay,
                       layer_decay=cfg.train.get("layer_decay"), encoder_depth=12)
-    trainable, frozen = jstep.split_params(jax.tree.map(jnp.asarray, np_params), ("encoder",))
-    jx = jax.tree.map(jnp.asarray, batch["input"])
-    key = jax.random.PRNGKey(7)
-    loss, grads = jax.jit(jax.value_and_grad(
-        lambda tr: jrec.forward(jstep.merge_params(tr, frozen), jx, key)))(trainable)
-    updates, _ = jax.jit(tx.update)(grads, tx.init(trainable), trainable)
-    return (port_loss, float(loss), trainer, start, jax.tree.map(np.asarray, grads),
-            jax.tree.map(np.asarray, updates), cfg)
+    dtype = np.float64 if f64 else np.float32
+
+    def as_jax(a):
+        a = np.asarray(a)
+        return jnp.asarray(a, dtype if a.dtype == np.float32 else a.dtype)
+
+    with jax.enable_x64(f64):
+        trainable, frozen = jstep.split_params(jax.tree.map(as_jax, np_params), ("encoder",))
+        jx = jax.tree.map(as_jax, batch["input"])
+        key = jax.random.PRNGKey(7)
+        loss, grads = jax.jit(jax.value_and_grad(
+            lambda tr: jrec.forward(jstep.merge_params(tr, frozen), jx, key)))(trainable)
+        updates, _ = jax.jit(tx.update)(grads, tx.init(trainable), trainable)
+        grads, updates = (jax.tree.map(lambda a: np.asarray(a, np.float32), t)
+                          for t in (grads, updates))
+    return (port_loss, float(loss), trainer, start, grads, updates, cfg)
 
 
 def check_step(port_loss, jax_loss, trainer, start, grads, updates):
@@ -174,7 +238,7 @@ def check_step(port_loss, jax_loss, trainer, start, grads, updates):
 @pytest.fixture(scope="module")
 def upernet_step():
     with pytest.MonkeyPatch.context() as mp:
-        return recipe_step("ade20k_upernet_metatransformer.yaml", mp)
+        return recipe_step("ade20k_upernet_metatransformer.yaml", mp, f64=True)
 
 
 def test_ade20k_upernet_recipe_step_matches_jax(upernet_step):
