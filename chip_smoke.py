@@ -25,6 +25,7 @@ through the hand-written kernels.
     python3 chip_smoke.py --dense          # only phase_dense and the dense recipes' holds and steps
     python3 chip_smoke.py --detection      # only phase_detection and the COCO recipes' holds and steps
     python3 chip_smoke.py --det3d          # only phase_det3d and the KITTI recipes through train_cli
+    python3 chip_smoke.py --det3d --det3d-models point_rcnn iassd   # ... for those models only
     python3 chip_smoke.py --point-zoo      # only phase_point_zoo and the zoo recipes' steps
 
 Phases (any failed check raises, so the process exits non-zero):
@@ -3806,14 +3807,31 @@ def phase_detection(seed: int, dev, profile: bool = False) -> dict:
 DET3D_YAMLS = {"pointpillars": "kitti_pointpillars", "second": "kitti_second",
                "voxel_rcnn": "kitti_voxel_rcnn", "pv_rcnn": "kitti_pv_rcnn",
                "second_iou": "kitti_second_iou", "part_a2": "kitti_part_a2",
-               "pv_rcnn_pp": "kitti_pv_rcnn_pp", "centerpoint": "kitti_centerpoint"}
-# The ten 3D recipes (the eight KITTI ones, CenterPoint's nuScenes and Waymo)
-# train at their YAMLs' own batch sizes (32, 4, 2, 2, 4, 2, 2, 2; 4, 4).
+               "pv_rcnn_pp": "kitti_pv_rcnn_pp", "centerpoint": "kitti_centerpoint",
+               "point_rcnn": "kitti_point_rcnn", "iassd": "kitti_iassd",
+               "caddn": "kitti_caddn", "mdf_second": "mdf_waymo_nusc_second"}
+# The fourteen 3D recipes (the eleven KITTI ones, MDF's Waymo + nuScenes,
+# CenterPoint's nuScenes and Waymo) train at their YAMLs' own batch sizes
+# (32, 4, 2, 2, 4, 2, 2, 2, 2, 8, 4, 2 a dataset; 4, 4).
 DET3D_RECIPES = tuple(sorted(DET3D_YAMLS.values())) + ("nuscenes_centerpoint",
                                                        "waymo_centerpoint")
 DET3D_CASES = ((1, 16384), (2, 1024))  # (clouds a request, points a cloud): a scan, the recipes'
-# FPS launches a forward: PV-RCNN's keypoints; PV-RCNN++'s, one a sector
-DET3D_FPS = {"pv_rcnn": 1, "pv_rcnn_pp": 6}
+# (CaDDN takes that many 375 x 1242 images instead; MDF SECOND's clouds are dataset 1's)
+# FPS launches a forward: PV-RCNN's keypoints; PV-RCNN++'s, one a sector;
+# PointRCNN's 4 backbone stages and the RoI head's 2 (its forward here runs
+# both stages); IA-SSD's 2 D-FPS stages
+DET3D_FPS = {"pv_rcnn": 1, "pv_rcnn_pp": 6, "point_rcnn": 6, "iassd": 2}
+# Models also run at their YAMLs' batches on 16,384-point scans: the point
+# detectors give #7 shapes there that no other case gives it (held in every
+# run), and with CaDDN (4 images, its 674 MB voxel grid an image) and MDF
+# SECOND (2 clouds of each dataset) their step's peak memory is set by the
+# batch (--det3d also times them)
+DET3D_YAML_BATCHES = {"point_rcnn": 2, "iassd": 8, "caddn": 4, "mdf_second": 2}
+# The CaDDN step against float64 on the CPU takes one image: its first BEV
+# conv gathers 1.5e9 patch elements an image, 12 GB in float64. MDF
+# SECOND's takes one cloud of each dataset (both datasets' affines in one
+# step, at half the float64 cost of two clouds each).
+DET3D_STEP_BATCH = {"caddn": 1, "mdf_second": 1}
 # The default run holds every model on the scan, and the two that sample by
 # FPS also at (2, 1024), where they ask for more samples than a cloud has
 # points; --det3d holds and times every model at both cases.
@@ -3881,79 +3899,174 @@ def _det3d_pins(train: bool = False) -> _ReplayedOn:
     sector sets and VectorPool members; training, also the anchor
     assignment, the RoI sampling, Part-A2's part targets, CenterPoint's
     heatmap targets and the ReLU gates of the sparse, BEV and centre-head
-    stages (``gates.act_gate``). fp32 rounding on either side of a floor, a
-    threshold, a radius or 0 flips any of them."""
+    stages (``gates.act_gate``); PointRCNN's and IA-SSD's ball members
+    (``pv_rcnn.ball_members``, as PV-RCNN's), 3-NN and RoI members, CaDDN's frustum floors (its LID bins and pixel floors) and,
+    training, PointRCNN's and IA-SSD's point targets and CaDDN's depth
+    bins. fp32 rounding on either side of a floor, a threshold, a radius or
+    0 flips any of them."""
     from metatransformer_tpu_torch.models import detector3d, pv_rcnn, voxel_rcnn
-    from metatransformer_tpu_torch.ops import gates, iou3d
+    from metatransformer_tpu_torch.ops import gates, iou3d, point_interp
     from metatransformer_tpu_torch.ops import sparse_conv as sp
 
-    from metatransformer_tpu_torch.models import centerpoint, part_a2, pv_rcnn_pp
+    from metatransformer_tpu_torch.models import caddn, centerpoint, iassd, part_a2, point_rcnn
+    from metatransformer_tpu_torch.models import pv_rcnn_pp
 
     targets = [(sp, "voxel_assignment"), (detector3d, "top_scores"), (iou3d, "nms_bev"),
                (voxel_rcnn, "pool_members"), (pv_rcnn, "ball_members"),
-               (pv_rcnn_pp, "spc_keep"), (pv_rcnn_pp, "vector_pool_members")]
+               (pv_rcnn_pp, "spc_keep"), (pv_rcnn_pp, "vector_pool_members"),
+               (point_rcnn, "roi_members"),
+               (point_interp, "three_nn"), (caddn, "frustum_floors")]
     if train:
         targets += [(detector3d, "assign_targets"), (voxel_rcnn, "sample_rois"),
                     (part_a2, "part_targets"), (centerpoint, "assign_targets"),
-                    (gates, "act_gate")]
+                    (point_rcnn, "assign_point_targets"), (iassd, "assign_center_targets"),
+                    (caddn, "depth_to_bin"), (gates, "act_gate")]
     return _ReplayedOn(*targets)
 
 
-def _det3d_cfgs() -> dict:
-    """The eight KITTI YAMLs' model configs, as ``recipes.py`` builds them."""
+def _det3d_cfgs(names=None) -> dict:
+    """The 3D YAMLs' model configs (those of ``names``, by default every
+    one), as ``recipes.py`` builds them."""
     from metatransformer_tpu_torch import recipes
     from metatransformer_tpu_torch.configs import load_config
 
-    cfgs = {name: load_config(_recipe_yaml(stem)) for name, stem in DET3D_YAMLS.items()}
-    return {"pointpillars": recipes.pointpillars_config(cfgs["pointpillars"]),
-            "second": recipes.second_config(cfgs["second"]),
-            "centerpoint": recipes.centerpoint_config(cfgs["centerpoint"]),
-            **{name: recipes.two_stage_config(name, cfgs[name]) for name in DET3D_YAMLS
-               if name not in ("pointpillars", "second", "centerpoint")}}
+    cfgs = {name: load_config(_recipe_yaml(stem)) for name, stem in DET3D_YAMLS.items()
+            if names is None or name in names}
+    own = {"pointpillars": recipes.pointpillars_config, "second": recipes.second_config,
+           "centerpoint": recipes.centerpoint_config, "point_rcnn": recipes.point_rcnn_config,
+           "iassd": recipes.iassd_config, "caddn": recipes.caddn_config,
+           "mdf_second": recipes.mdf_second_config}
+    return {name: own[name](cfgs[name]) if name in own else recipes.two_stage_config(name, cfgs[name])
+            for name in cfgs}
 
 
-def _det3d_models(seed: int) -> dict:
+def _det3d_models(seed: int, names=None) -> dict:
     """name -> (cfg, anchors [A, 7] on the CPU (none for the anchor-free
     CenterPoint), parameters on the card): each model built with no device
     named."""
     import importlib
 
-    from metatransformer_tpu_torch.models import detector3d, second
+    from metatransformer_tpu_torch.models import caddn, detector3d, second
 
+    modules = {"pointpillars": "detector3d", "mdf_second": "mdf_detectors"}
     out = {}
-    for name, cfg in _det3d_cfgs().items():
-        mod = detector3d if name == "pointpillars" else importlib.import_module(
-            f"metatransformer_tpu_torch.models.{name}")
+    for name, cfg in _det3d_cfgs(names).items():
+        mod = importlib.import_module(f"metatransformer_tpu_torch.models.{modules.get(name, name)}")
         params = mod.init(cfg, torch.Generator().manual_seed(seed))  # the card
         anchors = (detector3d.generate_anchors(cfg) if name == "pointpillars"
-                   else np.zeros((0, 7), np.float32) if name == "centerpoint"
-                   else second.generate_anchors(getattr(cfg, "stage1", cfg)))
+                   else caddn.generate_anchors(cfg) if name == "caddn"
+                   else np.zeros((0, 7), np.float32) if name in ("centerpoint", "point_rcnn",
+                                                                 "iassd")
+                   else second.generate_anchors(getattr(cfg, "stage1", getattr(cfg, "base", cfg))))
         out[name] = (cfg, torch.as_tensor(anchors), params)
     return out
 
 
 def _det3d_batch(cfg, b: int, n: int, seed: int) -> dict:
     """The recipes' synthetic KITTI batch (``_det3d_synth``) at ``n`` points
-    a cloud, as CPU tensors."""
+    a cloud, as CPU tensors; CaDDN's camera batch of ``b`` images
+    (``_caddn_synth``); MDF SECOND's two datasets, dataset 1's keys with a
+    ``_b`` suffix (seeds 1000 apart, as its recipe draws them)."""
     from metatransformer_tpu_torch import recipes
+    from metatransformer_tpu_torch.models import caddn, mdf_detectors
 
+    if isinstance(cfg, caddn.CaDDNConfig):
+        batch = next(iter(recipes._caddn_synth(cfg)(b, 1, seed)))["input"]
+        return {k: torch.as_tensor(v) for k, v in batch.items()}
+    if isinstance(cfg, mdf_detectors.MDFSECONDConfig):
+        a, other = _det3d_batch(cfg.base, b, n, seed), _det3d_batch(cfg.base, b, n, seed + 1000)
+        return {**a, **{f"{k}_b": v for k, v in other.items()}}
     s1 = getattr(cfg, "stage1", cfg)
-    pc_range = s1.vfe.voxel.pc_range if hasattr(s1, "vfe") else s1.pc_range
+    pc_range = getattr(s1, "pc_range", recipes._KITTI_RANGE)
+    pc_range = s1.vfe.voxel.pc_range if hasattr(s1, "vfe") else pc_range
     batch = next(iter(recipes._det3d_synth(pc_range, s1.num_classes, n)(b, 1, seed)))["input"]
     return {k: torch.as_tensor(v) for k, v in batch.items()}
 
 
+def _det3d_inputs(name: str, batch: dict):
+    """What a model's forward and predict take from ``_det3d_batch``: the
+    points (MDF SECOND: dataset 1's), or CaDDN's camera batch."""
+    return batch if name == "caddn" else batch["points_b" if name == "mdf_second" else "points"]
+
+
 def _det3d_fns(name: str, cfg, anchors):
     """(forward, predict, loss) of one model: forward -> a dict of its
-    outputs, predict -> a dict of [B, ...] tensors, loss -> (total, logs)."""
+    outputs, predict -> a dict of [B, ...] tensors, loss -> (total, logs).
+    PointRCNN's forward runs both stages (the point head, proposals, RoI
+    pool and refinement); CaDDN's predict is the anchor head's
+    post-processing; MDF SECOND's forward and predict run on dataset 1, its
+    loss is the recipe's merged two-dataset loss (weights 1)."""
     import importlib
 
-    from metatransformer_tpu_torch.models import detector3d, pv_rcnn, second, voxel_rcnn
+    from metatransformer_tpu_torch.models import caddn, detector3d, iassd, mdf_detectors
+    from metatransformer_tpu_torch.models import point_rcnn as prc
+    from metatransformer_tpu_torch.models import pv_rcnn, second, voxel_rcnn
 
     def stacked(dets):
         return {k: torch.stack([d[k] for d in dets]) for k in dets[0]}
 
-    if name == "centerpoint":
+    if name == "point_rcnn":
+        def forward(p, pts):
+            mask = torch.ones(pts.shape[:2], dtype=torch.bool, device=pts.device)
+            pf, cls, box = prc.forward(p, pts, cfg, mask)
+            rois, scores, valid = prc.propose(pts[..., :3], cls, box, mask, cfg)
+            rcnn_cls, rcnn_reg, empty = prc._pooled_refine(p, pts[..., :3], cls, pf, mask, rois,
+                                                           cfg)
+            return {"point_feats": pf, "cls_logits": cls, "box_enc": box, "rois": rois,
+                    "roi_scores": scores, "roi_valid": valid, "rcnn_cls": rcnn_cls,
+                    "rcnn_reg": rcnn_reg, "empty": empty}
+
+        def predict(p, pts):
+            return stacked(prc.predict(p, pts, cfg))
+
+        def loss(p, x):
+            return prc.training_loss(p, x["points"], x["gt_boxes"], x["gt_labels"], x["gt_valid"],
+                                     cfg)
+    elif name == "iassd":
+        def forward(p, pts):
+            out = iassd.forward(p, pts, cfg)
+            return {**{k: v for k, v in out.items() if k != "sa_ins"},
+                    **{f"sa_ins{i}_{j}": t for i, pair in enumerate(out["sa_ins"])
+                       for j, t in enumerate(pair)}}
+
+        def predict(p, pts):
+            return stacked(iassd.predict(p, pts, cfg))
+
+        def loss(p, x):
+            return iassd.training_loss(p, x["points"], x["gt_boxes"], x["gt_labels"],
+                                       x["gt_valid"], cfg)
+    elif name == "caddn":
+        keys = ("image", "lidar_to_cam", "cam_to_img")
+
+        def forward(p, x):
+            preds, depth_logits = caddn.forward(p, *(x[k] for k in keys), cfg)
+            return {**preds, "depth_logits": depth_logits}
+
+        def predict(p, x):
+            preds, _ = caddn.forward(p, *(x[k] for k in keys), cfg)
+            return stacked(detector3d.predict(preds, anchors.to(x["image"].device), cfg))
+
+        def loss(p, x):
+            return caddn.training_loss(p, *(x[k] for k in keys + (
+                "depth_maps", "fg_mask", "gt_boxes", "gt_valid")), anchors.to(x["image"].device),
+                cfg)
+    elif name == "mdf_second":
+        def forward(p, pts):
+            return mdf_detectors.forward(p, pts, cfg, 1)
+
+        def predict(p, pts):
+            return stacked(detector3d.predict(mdf_detectors.forward(p, pts, cfg, 1),
+                                              anchors.to(pts.device), cfg.base))
+
+        def loss(p, x):
+            on = anchors.to(x["points"].device)
+            la, logs_a = mdf_detectors.training_loss(p, x["points"], x["gt_boxes"],
+                                                     x["gt_valid"], on, cfg, 0)
+            lb, logs_b = mdf_detectors.training_loss(p, x["points_b"], x["gt_boxes_b"],
+                                                     x["gt_valid_b"], on, cfg, 1)
+            return la + lb, {**{f"a_{k}": v for k, v in logs_a.items()},
+                             **{f"b_{k}": v for k, v in logs_b.items()}}
+    elif name == "centerpoint":
         from metatransformer_tpu_torch.models import centerpoint as cp
 
         def forward(p, pts):
@@ -4012,6 +4125,11 @@ def _det3d_fns(name: str, cfg, anchors):
     return forward, predict, loss
 
 
+def _to_device(x, dev):
+    """A tensor or a flat dict of tensors on ``dev``."""
+    return {k: v.to(dev) for k, v in x.items()} if isinstance(x, dict) else x.to(dev)
+
+
 def _det3d_close(what: str, got: dict, want: dict) -> dict:
     """The card's outputs against the CPU's: integers and flags equal,
     floats at the DET3D bounds. Returns the worst error of each key."""
@@ -4043,7 +4161,7 @@ def _replayed_on_card(what: str, fn, params, x, expected: dict, dev, pins: _Repl
     pins.to(dev)
     ops.reset_launch_counts()
     with torch.no_grad(), pins.replay():
-        got = fn(params, x.to(dev))
+        got = fn(params, _to_device(x, dev))
     torch.cuda.synchronize()
     launches = ops.launch_counts()
     pins.check(what)
@@ -4204,7 +4322,7 @@ def _grads_held(label: str, loss_fn, params, cpu_params, x: dict, dev, pins: _Re
             ratios.append((card / cpu, leaf, card, cpu))
     ratios.sort(reverse=True)
     tree = leaves[0]
-    print(f"{label} step b={x['points'].shape[0]}: loss {loss:.6f} against the CPU's "
+    print(f"{label} step b={next(iter(x.values())).shape[0]}: loss {loss:.6f} against the CPU's "
           f"{ref_loss:.6f} (float64 {loss64:.6f}); gradient relative L2 from float64: the tree "
           f"card {rel(tree[1], tree[3]):.3g}, CPU fp32 {rel(tree[2], tree[3]):.3g}; the leaf "
           f"furthest {worst[0]}: card {worst[1]:.3g}, CPU fp32 {worst[2]:.3g} (max "
@@ -4225,11 +4343,12 @@ def _det3d_step(name, fns, params, cpu_params, x, dev) -> dict:
     and float64 (``_grads_held``), the choices of ``_det3d_pins(train=True)``
     replayed. Returns the card's launches."""
     expected = {"fps": DET3D_FPS[name]} if name in DET3D_FPS else {}
-    # CenterPoint's head convs carry a bias ahead of a GroupNorm: zero
-    # gradients up to rounding, held by size (``_grads_held`` ``zero_leaf``)
+    # CenterPoint's head convs and CaDDN's image stem carry a bias ahead of a
+    # GroupNorm: zero gradients up to rounding, held by size (``_grads_held``
+    # ``zero_leaf``)
     return _grads_held(f"det3d {name}", fns[2], params, cpu_params, x, dev,
                        _det3d_pins(train=True), expected,
-                       zero_leaf=ZOO_ZERO_LEAF if name == "centerpoint" else 0.0)
+                       zero_leaf=ZOO_ZERO_LEAF if name in ("centerpoint", "caddn") else 0.0)
 
 
 def _part_a2_head_times(params, cfg, dev, smi: str) -> dict:
@@ -4274,30 +4393,103 @@ def _part_a2_head_times(params, cfg, dev, smi: str) -> dict:
     return times
 
 
-def phase_det3d(seed: int, dev, profile: bool = False, full: bool = True) -> dict:
-    """3D detection at the KITTI YAMLs' full width (seeded weights, fp32),
+def _det3d_at_yaml_batch(name: str, cfg, params, fns, dev, seed: int, smi: str, full: bool,
+                         profile: bool, times: dict) -> None:
+    """One of DET3D_YAML_BATCHES' models at its YAML's batch on 16,384-point
+    scans (CaDDN: 375 x 1242 images): #7 index for index against its plain version on every input a predict on the card gives it
+    (PointRCNN's backbone and RoI head, IA-SSD's D-FPS stages); with
+    ``full`` also each such launch's time beside its plain version and bound,
+    the forward, predict and step (loss and backward) times (median of
+    DET_TIMING_REPS), the step's peak memory, and under ``profile`` the
+    predict's and step's device time by kernel and idle share."""
+    from metatransformer_tpu_torch.core.tree import leaves, tree_map
+    from metatransformer_tpu_torch.ops import point_ops as po
+
+    b = DET3D_YAML_BATCHES[name]
+    batch = {k: v.to(dev) for k, v in _det3d_batch(cfg, b, DET3D_CASES[0][1], seed + 13).items()}
+    x = _det3d_inputs(name, batch)
+    calls, fps = [], po.furthest_point_sample
+
+    def record(points, n):
+        calls.append((points.detach().float().contiguous(), n))
+        return fps(points, n)
+
+    with torch.no_grad(), mock.patch.object(po, "furthest_point_sample", record):
+        fns[1](params, x)
+    for pts, g in calls:
+        what = f"{name} b={b} B={pts.shape[0]} N={pts.shape[1]} G={g}"
+        _check_fps(what, pts, g)
+        if full:
+            with torch.no_grad():
+                ms = _loop_ms(lambda: po.fps_cuda(pts, g))
+                plain = _median_ms(lambda: po.furthest_point_sample_plain(pts, g), 3)
+            bound = _fps_bound(pts.shape[0], pts.shape[1], g)
+            times[f"fps {what}"] = {"kernel": ms, "plain": plain, "bound": bound["bound_ms"]}
+            print(f"fps {what} ({smi}): {ms:.4f} ms a launch (loop of {TIMING_REPS}), plain "
+                  f"version {plain:.4f} ms, bound {bound['bound_ms']:.4f} ms "
+                  f"({bound['bound_by']})", flush=True)
+    if not full:
+        return
+    tree = tree_map(lambda t: t.detach().requires_grad_(t.is_floating_point()), params)
+    trained = [t for t in leaves(tree) if t.requires_grad]
+
+    def step():
+        torch.autograd.grad(fns[2](tree, batch)[0], trained, allow_unused=True)
+
+    with torch.no_grad():
+        fwd = _median_ms(lambda: fns[0](params, x), DET_TIMING_REPS)
+        pred = _median_ms(lambda: fns[1](params, x), DET_TIMING_REPS)
+    step_ms = _median_ms(step, DET_TIMING_REPS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    times[f"{name} yaml b={b}"] = {"forward": fwd, "predict": pred, "step": step_ms,
+                                   "step_peak_gib": peak}
+    print(f"det3d {name} at its YAML's batch b={b} ({smi}): forward {fwd:.4f} ms, predict "
+          f"{pred:.4f} ms, step (loss and backward) {step_ms:.4f} ms, step peak memory "
+          f"{peak:.3f} GiB; median of {DET_TIMING_REPS}", flush=True)
+    if profile:
+        from torch.profiler import ProfilerActivity, profile as trace
+
+        with trace(activities=[ProfilerActivity.CUDA]):  # the profiler's start-up, untimed
+            fns[1](params, x)
+        _profile_step(lambda: fns[1](params, x), f"det3d {name} predict b={b}", top=12)
+        _profile_step(step, f"det3d {name} step b={b}", top=12)
+    del tree, trained
+    torch.cuda.empty_cache()
+
+
+def phase_det3d(seed: int, dev, profile: bool = False, full: bool = True, names=None) -> dict:
+    """3D detection at the YAMLs' full width (seeded weights, fp32),
     through the port's entry points with no device named: (a) the ops at
     KITTI scale against the CPU (``_det3d_ops``); (b) ``forward`` and
     ``predict`` of PointPillars, SECOND, Voxel R-CNN, PV-RCNN, SECOND-IoU,
-    Part-A2 and PV-RCNN++ at each of DET3D_CASES against the same code on
-    the CPU, the choices recorded there and replayed (``_det3d_pins``);
-    PV-RCNN launches #7 once a forward, PV-RCNN++ once a sector (6), the
-    others nothing (DET3D_FPS); (c) #7 at both models' shapes
-    (DET3D_FPS_CASES) index for index against its plain version; (d) one
-    backward of each training loss at b = 2 against the CPU
-    (``_det3d_step``); (e) the forwards, predicts and the NMS loop timed at
-    each case (median of DET_TIMING_REPS), and under ``profile`` their
+    Part-A2, PV-RCNN++, CenterPoint, PointRCNN, IA-SSD, CaDDN and MDF SECOND
+    at each of DET3D_CASES against the same code on the CPU, the choices
+    recorded there and replayed (``_det3d_pins``); #7 launched DET3D_FPS
+    times a forward, nothing else; (c) #7 at PV-RCNN(++)'s shapes
+    (DET3D_FPS_CASES) and at every shape PointRCNN and IA-SSD give it at
+    their YAMLs' batches (``_det3d_at_yaml_batch``) index for index against
+    its plain version; (d) one backward of each training loss at b = 2
+    (CaDDN 1) against the CPU and float64 (``_det3d_step``); (e) the
+    forwards, predicts and the NMS loop timed at each case (median of
+    DET_TIMING_REPS), DET3D_YAML_BATCHES' models also at their YAMLs'
+    batches with step times and peak memory, and under ``profile`` their
     device time by kernel, idle share and the NMS loop's share of each
     predict. Without ``full`` (the default run; ``--det3d`` is full) (b)
-    runs at DET3D_SMOKE_CASES and (c) and (e) take no times. Returns the
-    launches by path."""
+    runs at DET3D_SMOKE_CASES and (c) and (e) take no times. ``names`` (a
+    subset of DET3D_YAMLS): only those models, without (a) and PV-RCNN(++)'s
+    shapes of (c). Returns the launches by path."""
     from metatransformer_tpu_torch.core.tree import leaves, tree_map
     from metatransformer_tpu_torch.ops import iou3d
 
     t0 = time.perf_counter()
     smi = _smi()
-    _det3d_ops(seed, dev)
-    models = _det3d_models(seed)
+    if names is None:
+        _det3d_ops(seed, dev)
+    models = _det3d_models(seed, names)
     launches, times = {}, {}
     for name, (cfg, anchors, params) in models.items():
         t_model = time.perf_counter()
@@ -4309,19 +4501,22 @@ def phase_det3d(seed: int, dev, profile: bool = False, full: bool = True) -> dic
         counts = []
         cases = DET3D_CASES if full else DET3D_SMOKE_CASES[name]
         for b, n in cases:
-            pts = _det3d_batch(cfg, b, n, seed + b)["points"]
+            pts = _det3d_inputs(name, _det3d_batch(cfg, b, n, seed + b))
             for kind, fn in (("forward", fns[0]), ("predict", fns[1])):
                 counts.append(_det3d_held(f"det3d {name} {kind} b={b} N={n}", fn, params,
                                           cpu_params, pts, expected, dev))
         launches[f"det3d_{name}"] = {k: sum(c[k] for c in counts) for k in counts[0]}
-        x = _det3d_batch(cfg, *DET3D_CASES[1], seed + 7)
+        x = _det3d_batch(cfg, DET3D_STEP_BATCH.get(name, DET3D_CASES[1][0]), DET3D_CASES[1][1],
+                         seed + 7)
         launches[f"det3d_{name}_step"] = _det3d_step(name, fns, params, cpu_params, x, dev)
+        if name in DET3D_YAML_BATCHES and (full or name in DET3D_FPS):
+            _det3d_at_yaml_batch(name, cfg, params, fns, dev, seed, smi, full, profile, times)
 
         nms_args = []
         nms = iou3d.nms_bev
         with torch.no_grad():
             for b, n in cases if full else ():
-                pts = _det3d_batch(cfg, b, n, seed + b)["points"].to(dev)
+                pts = _to_device(_det3d_inputs(name, _det3d_batch(cfg, b, n, seed + b)), dev)
                 with mock.patch.object(iou3d, "nms_bev",
                                        lambda *a, **k: nms_args.append((a, k)) or nms(*a, **k)):
                     fns[1](params, pts)
@@ -4353,7 +4548,7 @@ def phase_det3d(seed: int, dev, profile: bool = False, full: bool = True) -> dic
 
     from metatransformer_tpu_torch.ops import point_ops as po
 
-    for b, n, g in DET3D_FPS_CASES:
+    for b, n, g in DET3D_FPS_CASES if names is None else ():
         pts = _det3d_batch(models["pv_rcnn"][0], b, n, seed + 11)["points"][..., :3]
         pts = pts.contiguous().to(dev)
         _check_fps(f"PV-RCNN(++) keypoints B={b} N={n} G={g}", pts, g)
@@ -4776,6 +4971,12 @@ def phase_point_seg(seed: int, dev, profile: bool = False, full: bool = True) ->
 # --------------------------------------------------------------------------
 
 RECIPE_FLAGSHIP = "modelnet40_metatransformer"  # runs at its own batch, 32
+# phase_recipes times each of the 54 recipes' steps over a median of 5 after
+# 3 warm-ups: at medians of 20 (3D and COCO: 10) the timed steps came to
+# about 146 s of the default run on an H100 80GB HBM3 at 700 W (their
+# medians times their counts). The family flags (--dense, --detection,
+# --det3d, --point-zoo, --point-seg) time their recipes over 10 or 20.
+RECIPE_TIMING_REPS = 5
 RECIPE_BATCH, RECIPE_STEPS = 8, 2  # the others: min(yaml, 8), 1 epoch of 2 steps
 # The dense recipes train at the reference's 2 images a GPU
 # (ade20k_upernet_metatransformer.yaml: 8 GPUs x 2), where a full-width
@@ -4783,6 +4984,13 @@ RECIPE_BATCH, RECIPE_STEPS = 8, 2  # the others: min(yaml, 8), 1 epoch of 2 step
 DENSE_RECIPES = ("ade20k_mask2former_metatransformer", "ade20k_upernet_metatransformer",
                  "coco_mask2former_metatransformer")
 DENSE_RECIPE_BATCH = 2
+# The KITTI point detectors' YAMLs train at lr 1e-2 under one_cycle over 80
+# epochs, which starts at lr / 10; 1 epoch of 2 steps starts at the peak,
+# where the first step throws the next one's box codes past exp's range in
+# the reference as in the port (no BatchNorm in the MLP stacks, losses near
+# 1e3: NaN at step 2 on the CPU, JAX and PyTorch alike). They train at the
+# schedule's first lr.
+RECIPE_OVERRIDES = {"kitti_point_rcnn": ("train.lr=0.001",), "kitti_iassd": ("train.lr=0.001",)}
 # The COCO detection recipes too (coco_mask_rcnn_metatransformer.yaml: batch
 # 16 = 8 GPUs x 2); their steps are timed by a median of DET_TIMING_REPS.
 DETECTION_RECIPES = ("coco_cascade_rcnn_metatransformer", "coco_htcpp_metatransformer",
@@ -4808,8 +5016,12 @@ RECIPE_KERNELS = {
     "imagenet_large_metatransformer": FUSED_PATH,  # ViT-L14, T = 257
     "imagenet_metatransformer": FUSED_PATH,  # T = 197
     "indianpines_caf_metatransformer": FUSED_PATH,  # T = 201
-    # the 3D detectors run no encoder; PV-RCNN(++) take their keypoints by FPS
+    # the 3D detectors run no encoder; PV-RCNN(++) take their keypoints by
+    # FPS, PointRCNN and IA-SSD their set-abstraction centres
+    "kitti_caddn": (),
     "kitti_centerpoint": (),
+    "kitti_iassd": ("fps",),  # D-FPS to 4096 and 1024 from 1024 points a cloud
+    "kitti_point_rcnn": ("fps",),  # 4 backbone stages, 2 in the RoI head
     "kitti_part_a2": (),
     "kitti_pointpillars": (),
     "kitti_pv_rcnn": ("fps",),  # 2048 keypoints from 1024 points a cloud
@@ -4821,6 +5033,7 @@ RECIPE_KERNELS = {
     "kinetics400_metatransformer": FLASH_PATH,  # T = 1568, accum_steps 2
     "kinetics400_videomae_pretrain": FLASH_PATH,  # fp32: decoder T = 1568
     "m4_metatransformer": FUSED_PATH,  # T = 36
+    "mdf_waymo_nusc_second": (),
     "modelnet40_curvenet": ("fps",),  # the zoo runs no encoder; 3 FPS a forward
     "modelnet40_metatransformer": ("fps", *FUSED_PATH),  # T = 257
     "modelnet40_pointnext": ("fps",),  # 4 FPS a forward
@@ -5106,10 +5319,15 @@ def _jpeg_tree(root: str, seed: int, classes: int = 2, per_class: int = 8) -> No
 def _recipe_argv(stem: str, seed: int) -> list:
     return ["--cfg", _recipe_yaml(stem), "--epochs", "1",
             "--steps-per-epoch", str(RECIPE_STEPS), f"train.batch_size={_recipe_batch(stem)}",
-            f"seed={seed}"]
+            f"seed={seed}", *RECIPE_OVERRIDES.get(stem, ())]
 
 
-def _recipe_reps(stem: str) -> int:
+def _recipe_reps(stem: str, default_run: bool = False) -> int:
+    """The steps a recipe's step time is the median of: RECIPE_TIMING_REPS
+    in the default run; under the family flags DET_TIMING_REPS for the
+    detection recipes, TIMING_REPS for the others."""
+    if default_run:
+        return RECIPE_TIMING_REPS
     return DET_TIMING_REPS if stem in DETECTION_RECIPES + DET3D_RECIPES else TIMING_REPS
 
 
@@ -5138,12 +5356,13 @@ def phase_family_recipes(stems, what: str, seed: int, dev, profile: bool = False
           + json.dumps({k: round(v, 4) for k, v in times.items()}), flush=True)
 
 
-def _train_recipe(stem: str, seed: int, dev, profile: bool, shapes: set, extra=()) -> tuple:
+def _train_recipe(stem: str, seed: int, dev, profile: bool, shapes: set, extra=(),
+                  default_run: bool = False) -> tuple:
     """``train_cli.main`` on one recipe YAML as a user runs it (its launches
     held to RECIPE_KERNELS, the shape of each kernel call added to
     ``shapes``, a finite final loss), then its step timed as
-    ``train_cli.setup`` builds it, with its peak memory. Returns (launches,
-    ms)."""
+    ``train_cli.setup`` builds it (median of ``_recipe_reps``), with its
+    peak memory. Returns (launches, ms)."""
     import gc
 
     from metatransformer_tpu_torch import ops, train_cli
@@ -5171,20 +5390,21 @@ def _train_recipe(stem: str, seed: int, dev, profile: bool, shapes: set, extra=(
         f"recipe {stem} step", session.trainer, next(iter(session.train_batches())),
         "samples", torch.Generator(device=dev).manual_seed(seed),
         f"recipe {stem} step b={batch}" if profile else None, size=batch, top=6,
-        reps=_recipe_reps(stem))
+        reps=_recipe_reps(stem, default_run))
     del session
     gc.collect()
     torch.cuda.empty_cache()
     return counts, ms
 
 
-def phase_det3d_recipes(seed: int, dev, profile: bool = False) -> dict:
-    """``--det3d`` only: the seven KITTI recipes through ``train_cli`` at full
-    width and their own batch sizes, as ``phase_recipes`` trains them, and
-    #7 held against its plain version at the shapes they gave it. Returns
-    the launches by path."""
+def phase_det3d_recipes(seed: int, dev, profile: bool = False, names=None) -> dict:
+    """``--det3d`` only: the fourteen 3D recipes (those of ``names``' YAMLs)
+    through ``train_cli`` at full width and their own batch sizes, as
+    ``phase_recipes`` trains them, and #7 held against its plain version at
+    the shapes they gave it. Returns the launches by path."""
     launches, times, shapes = {}, {}, set()
-    for stem in DET3D_RECIPES:
+    stems = DET3D_RECIPES if names is None else sorted(DET3D_YAMLS[n] for n in names)
+    for stem in stems:
         launches[f"recipes_{stem}"], times[stem] = _train_recipe(stem, seed, dev, profile, shapes)
     _hold_shapes(shapes, seed, dev)
     print(f"det3d recipe step times (ms, median of {DET_TIMING_REPS}, {_smi()}): "
@@ -5198,8 +5418,8 @@ def phase_recipes(seed: int, dev, profile: bool = False) -> tuple:
     at ``train.batch_size=min(yaml, 8)`` (the flagship at its own 32). Each
     recipe's kernel launches are counted under ``recipes_<stem>``, with the
     shape of every kernel call, and its final loss must be finite; then its
-    step is timed as ``train_cli.setup`` builds it (median of TIMING_REPS,
-    first batch on the card). ``--eval`` and ``--eval-all`` run on
+    step is timed as ``train_cli.setup`` builds it (median of
+    RECIPE_TIMING_REPS, first batch on the card). ``--eval`` and ``--eval-all`` run on
     modelnet40's work dir and ``--data`` on a JPEG tree for imagenet. Every
     kernel is then held against its plain version at each shape these runs
     gave it, and modelnet40 and s3dis train against the plain versions.
@@ -5222,8 +5442,8 @@ def phase_recipes(seed: int, dev, profile: bool = False) -> tuple:
     with tempfile.TemporaryDirectory() as work:
         for stem in ported:
             extra = ["--work-dir", f"{work}/{stem}"] if stem == RECIPE_FLAGSHIP else []
-            launches[f"recipes_{stem}"], times[stem] = _train_recipe(stem, seed, dev, profile,
-                                                                     shapes, extra)
+            launches[f"recipes_{stem}"], times[stem] = _train_recipe(
+                stem, seed, dev, profile, shapes, extra, default_run=True)
 
         flagship = ["--cfg", _recipe_yaml(RECIPE_FLAGSHIP), "--steps-per-epoch", str(RECIPE_STEPS),
                     f"train.batch_size={_recipe_batch(RECIPE_FLAGSHIP)}", f"seed={seed}",
@@ -5267,9 +5487,8 @@ def phase_recipes(seed: int, dev, profile: bool = False) -> tuple:
     del trainer
     gc.collect()
     torch.cuda.empty_cache()
-    print(f"recipe step times (ms, median of {TIMING_REPS}, the detection recipes of "
-          f"{DET_TIMING_REPS}, {smi}): " + json.dumps({k: round(v, 4) for k, v in times.items()}),
-          flush=True)
+    print(f"recipe step times (ms, median of {RECIPE_TIMING_REPS}, {smi}): "
+          + json.dumps({k: round(v, 4) for k, v in times.items()}), flush=True)
     return launches, worst
 
 
@@ -5307,9 +5526,12 @@ def main() -> None:
                          "detection recipes (DETECTION_RECIPES) as phase_recipes does; prints "
                          "no result")
     ap.add_argument("--det3d", action="store_true",
-                    help="only build and run phase_det3d, then train the seven KITTI recipes "
-                         "(DET3D_RECIPES) through train_cli as phase_recipes does; prints no "
-                         "result")
+                    help="only build and run phase_det3d, then train the fourteen 3D "
+                         "recipes (DET3D_RECIPES) through train_cli as phase_recipes does; "
+                         "prints no result")
+    ap.add_argument("--det3d-models", nargs="+", choices=sorted(DET3D_YAMLS), metavar="NAME",
+                    help="with --det3d: only these models of DET3D_YAMLS and their recipes, "
+                         "without the KITTI-scale op checks and PV-RCNN(++)'s keypoint shapes")
     ap.add_argument("--point-zoo", action="store_true",
                     help="only build and run phase_point_zoo: the 13 zoo classifiers' forwards "
                          "against the CPU, the three zoo recipe families' steps against the "
@@ -5354,8 +5576,8 @@ def main() -> None:
         phase_family_recipes(DETECTION_RECIPES, "detection", args.seed, dev, args.profile)
         return
     if args.det3d:
-        phase_det3d(args.seed, dev, args.profile)
-        phase_det3d_recipes(args.seed, dev, args.profile)
+        phase_det3d(args.seed, dev, args.profile, names=args.det3d_models)
+        phase_det3d_recipes(args.seed, dev, args.profile, names=args.det3d_models)
         return
     if args.point_zoo:
         phase_point_zoo(args.seed, dev, args.profile)

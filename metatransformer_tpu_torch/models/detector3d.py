@@ -199,6 +199,20 @@ def _patch_views(xp: torch.Tensor, ho: int, wo: int, stride: int) -> List[torch.
             for i in range(3) for j in range(3)]
 
 
+# The most patch elements one GEMM of :class:`_Conv3x3Gemm` gathers (8 GiB
+# in fp32): a larger conv runs in blocks of output rows. Only CaDDN's first
+# BEV conv (1,600 channels in, 376 x 280, 6.1e9 elements at b = 4) needs
+# them; every other 3x3 conv of the port runs as one GEMM.
+_GEMM_PATCH_LIMIT = 2**31
+
+
+def _row_blocks(b: int, ho: int, wo: int, width: int) -> List[slice]:
+    """Blocks of output rows whose patches hold at most _GEMM_PATCH_LIMIT
+    elements (one block: every row)."""
+    rows = max(1, min(ho, _GEMM_PATCH_LIMIT // max(1, b * wo * width)))
+    return [slice(r, min(r + rows, ho)) for r in range(0, ho, rows)]
+
+
 class _Conv3x3Gemm(torch.autograd.Function):
     """The patch GEMM with a backward that keeps only ``x``: it gathers the
     patches again for dW and adds dpatches back into one padded buffer,
@@ -210,7 +224,11 @@ class _Conv3x3Gemm(torch.autograd.Function):
         ctx.save_for_backward(x, w)
         ctx.stride = stride
         xp, (ho, wo), _ = _pad_same_3x3(x, stride)
-        return torch.cat(_patch_views(xp, ho, wo, stride), -1) @ w.reshape(-1, w.shape[-1])
+        w2 = w.reshape(-1, w.shape[-1])
+        views = _patch_views(xp, ho, wo, stride)
+        outs = [torch.cat([v[:, r] for v in views], -1) @ w2
+                for r in _row_blocks(x.shape[0], ho, wo, w2.shape[0])]
+        return outs[0] if len(outs) == 1 else torch.cat(outs, 1)
 
     @staticmethod
     def backward(ctx, g):
@@ -218,15 +236,19 @@ class _Conv3x3Gemm(torch.autograd.Function):
         s, c = ctx.stride, x.shape[-1]
         xp, (ho, wo), (top, left) = _pad_same_3x3(x, s)
         dx = dw = None
+        blocks = _row_blocks(x.shape[0], ho, wo, 9 * c)
         if ctx.needs_input_grad[1]:
-            cols = torch.cat(_patch_views(xp, ho, wo, s), -1).reshape(-1, 9 * c)
-            dw = (cols.T @ g.reshape(-1, g.shape[-1])).reshape(w.shape)
-            del cols
+            views = _patch_views(xp, ho, wo, s)
+            dw = sum(torch.cat([v[:, r] for v in views], -1).reshape(-1, 9 * c).T
+                     @ g[:, r].reshape(-1, g.shape[-1]) for r in blocks).reshape(w.shape)
         if ctx.needs_input_grad[0]:
-            dcols = g @ w.reshape(9 * c, -1).T
             dxp = torch.zeros_like(xp)
-            for k, view in enumerate(_patch_views(dxp, ho, wo, s)):
-                view += dcols[..., k * c:(k + 1) * c]
+            dviews = _patch_views(dxp, ho, wo, s)
+            for r in blocks:
+                dcols = g[:, r] @ w.reshape(9 * c, -1).T
+                for k, view in enumerate(dviews):
+                    view[:, r] += dcols[..., k * c:(k + 1) * c]
+                del dcols
             dx = dxp[:, top:top + x.shape[1], left:left + x.shape[2]]
         return dx, dw, None
 
@@ -245,10 +267,11 @@ def conv3x3_gemm(x: torch.Tensor, w: torch.Tensor, stride: int = 1) -> torch.Ten
     return _Conv3x3Gemm.apply(x, w, stride)
 
 
-def bev_backbone(params: Params, x: torch.Tensor, cfg) -> torch.Tensor:
+def bev_backbone(params: Params, x: torch.Tensor, cfg, up_hook=None) -> torch.Tensor:
     """BaseBEVBackbone: NHWC [B, H, W, C] -> the concat of every block's
     up, resized to the first's size; the ReLUs through
-    :func:`..ops.gates.gated_relu`."""
+    :func:`..ops.gates.gated_relu`. ``up_hook(i, u)``, where given, maps
+    block i's up before the resize (MDF's domain attention)."""
     ups, target_hw = [], None
     for i, (_, stride) in enumerate(zip(cfg.bev_channels, cfg.bev_strides)):
         for j, blk in enumerate(params[f"block{i}"]):
@@ -256,6 +279,8 @@ def bev_backbone(params: Params, x: torch.Tensor, cfg) -> torch.Tensor:
             x = gated_relu(group_norm(x, blk["gn_scale"], blk["gn_bias"]))
         up = params[f"up{i}"]
         u = gated_relu(group_norm(conv2d(x, up["w"]), up["gn_scale"], up["gn_bias"]))
+        if up_hook is not None:
+            u = up_hook(i, u)
         if target_hw is None:
             target_hw = tuple(u.shape[1:3])
         elif tuple(u.shape[1:3]) != target_hw:

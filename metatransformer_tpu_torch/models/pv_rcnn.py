@@ -24,7 +24,7 @@ the reference's ``jnp.max``.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -161,18 +161,18 @@ def ball_members(centers: torch.Tensor, points: torch.Tensor, valid: torch.Tenso
     return idx, slot < inside.sum(-1, keepdim=True)
 
 
-def ball_group_max(centers: torch.Tensor, points: torch.Tensor, feats: torch.Tensor,
-                   valid: torch.Tensor, radius: float, nsample: int, mlp_a: Params,
-                   mlp_b: Params, chunk: int = 512) -> torch.Tensor:
-    """Ball query + a 2-layer MLP on (rel_xyz, feature) + a masked max-pool
-    (pointnet2_stack StackSAModuleMSG) -> [B, M, mlp]. ``points`` and
-    ``feats`` are [B, N, .] or one flat list [N, .] for every sample, with
-    ``valid`` [B, N] saying which points each sample sees. The distances
-    are computed ``chunk`` query points at a time."""
+def ball_group(centers: torch.Tensor, points: torch.Tensor, feats: Optional[torch.Tensor],
+               valid: torch.Tensor, radius: float, nsample: int,
+               mlp: Callable[[torch.Tensor], torch.Tensor], chunk: int = 512) -> torch.Tensor:
+    """Ball query + ``mlp`` on (rel_xyz ++ feature) + a masked max-pool ->
+    [B, M, C_out]; an empty ball gives zeros. ``points`` and ``feats`` are
+    [B, N, .] or one flat list [N, .] for every sample, with ``valid``
+    [B, N] saying which points each sample sees; ``feats`` may be None. The
+    distances are computed ``chunk`` query points at a time."""
     b, m, _ = centers.shape
     if points.dim() == 2:
         points = points.expand(b, *points.shape)
-        feats = feats.expand(b, *feats.shape)
+        feats = None if feats is None else feats.expand(b, *feats.shape)
     outs = []
     for c0 in range(0, m, chunk):
         ctr = centers[:, c0:c0 + chunk]
@@ -181,13 +181,24 @@ def ball_group_max(centers: torch.Tensor, points: torch.Tensor, feats: torch.Ten
         # one index in the gradient's scatter (see sparse_conv.gather_rows)
         own = torch.arange(idx[0].numel(), device=idx.device).view(idx.shape[1:])
         idx = torch.where(keep, idx, own % points.shape[1])
-        rel = point_ops.gather_points(points, idx) - ctr[:, :, None, :]
-        h = torch.cat([rel, point_ops.gather_points(feats, idx)], -1)
-        h = torch.relu(h @ mlp_a["w"] + mlp_a["b"])
-        h = torch.relu(h @ mlp_b["w"] + mlp_b["b"])
-        out = torch.where(keep[..., None], h, float("-inf")).amax(2)
+        h = point_ops.gather_points(points, idx) - ctr[:, :, None, :]
+        if feats is not None:
+            h = torch.cat([h, point_ops.gather_points(feats, idx)], -1)
+        out = torch.where(keep[..., None], mlp(h), float("-inf")).amax(2)
         outs.append(torch.where(torch.isfinite(out), out, 0.0))
     return torch.cat(outs, 1)
+
+
+def ball_group_max(centers: torch.Tensor, points: torch.Tensor, feats: torch.Tensor,
+                   valid: torch.Tensor, radius: float, nsample: int, mlp_a: Params,
+                   mlp_b: Params, chunk: int = 512) -> torch.Tensor:
+    """:func:`ball_group` with a 2-layer MLP (pointnet2_stack
+    StackSAModuleMSG) -> [B, M, mlp]."""
+    def mlp(h):
+        h = torch.relu(h @ mlp_a["w"] + mlp_a["b"])
+        return torch.relu(h @ mlp_b["w"] + mlp_b["b"])
+
+    return ball_group(centers, points, feats, valid, radius, nsample, mlp, chunk)
 
 
 def bev_interpolate(feat: torch.Tensor, keypoints: torch.Tensor, cfg: PVRCNNConfig) -> torch.Tensor:

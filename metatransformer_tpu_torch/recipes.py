@@ -38,7 +38,6 @@ from metatransformer_tpu_torch.core import encoder as enc
 from metatransformer_tpu_torch.train.trainer import batch_to_device
 
 _ITEM_8 = "ROADMAP.md queue 1, item 8 (parallelism and encoder variants: core/moe_encoder.py)"
-_ITEM_9 = "ROADMAP.md queue 1, item 9 (the task-zoo tail)"
 
 
 @dataclasses.dataclass
@@ -1303,7 +1302,7 @@ def build_centerpoint(cfg, generator, smoke=False, device=None):
     return _det3d_recipe(params, forward, mcfg.pc_range, mcfg.num_classes, smoke)
 
 
-# the two-stage detectors the port has; the others raise naming item 9
+# the two-stage detectors over a SECOND stage 1
 _TWO_STAGE_CONFIGS = {"voxel_rcnn": "VoxelRCNNConfig", "pv_rcnn": "PVRCNNConfig",
                       "pv_rcnn_pp": "PVRCNNPPConfig", "part_a2": "PartA2Config",
                       "second_iou": "SECONDIoUConfig"}
@@ -1365,8 +1364,6 @@ def _two_stage_builder(model_name: str) -> Callable:
 
         from metatransformer_tpu_torch.models import second
 
-        if model_name not in _TWO_STAGE_CONFIGS:
-            _not_ported(f"the {model_name} 3D detection recipe (models/{model_name}.py)", _ITEM_9)
         device = _device.resolve(device)
         mod = importlib.import_module(f"metatransformer_tpu_torch.models.{model_name}")
         mcfg = two_stage_config(model_name, cfg, smoke)
@@ -1385,12 +1382,187 @@ def _two_stage_builder(model_name: str) -> Callable:
     return build
 
 
-def _det3d_not_ported(name: str) -> Callable:
-    def build_det3d(cfg, generator, smoke=False, device=None):
-        _not_ported(f"the {name} 3D detection recipe", _ITEM_9)
+_KITTI_RANGE = (0.0, -40.0, -3.0, 70.4, 40.0, 1.0)
 
-    build_det3d.__name__ = f"build_{name.lower()}"
-    return build_det3d
+
+def point_rcnn_config(cfg, smoke: bool = False):
+    """The PointRCNNConfig of the KITTI PointRCNN YAML (or the smoke one)."""
+    from metatransformer_tpu_torch.models import point_rcnn as pr
+
+    m = cfg.model
+    if smoke:
+        return pr.PointRCNNConfig(
+            num_classes=3,
+            sa_stages=(pr.SAStage(32, (0.5, 1.0), (8, 8), ((8, 8), (8, 8))),
+                       pr.SAStage(8, (1.0, 2.0), (8, 8), ((8, 16), (8, 16)))),
+            fp_mlps=((16, 16), (32, 32)), head_cls_fc=(16,), head_reg_fc=(16,), num_rois=8,
+            fg_per=4, num_sampled_points=16, xyz_up=(8, 8),
+            roi_sa_stages=(pr.SAStage(8, (0.5,), (8,), ((16, 16),)),
+                           pr.SAStage(-1, (100.0,), (8,), ((16, 32),))),
+            cls_fc=(16,), reg_fc=(16,), proposal_pre=64)
+    return pr.PointRCNNConfig(num_classes=m.get("num_classes", 3),
+                              num_rois=m.get("num_rois", 128), fg_per=m.get("fg_per", 64),
+                              num_sampled_points=m.get("num_sampled_points", 512))
+
+
+def iassd_config(cfg, smoke: bool = False):
+    """The IASSDConfig of the KITTI IA-SSD YAML (or the smoke one)."""
+    from metatransformer_tpu_torch.models import iassd
+
+    m = cfg.model
+    if smoke:
+        st = iassd.IASSDStage
+        return iassd.IASSDConfig(
+            stages=(st("sa", 32, "d-fps", (0.5, 1.0), (8, 8), ((8, 8), (8, 8)), agg=8, conf=8,
+                       layer_input=0),
+                    st("sa", 16, "ctr-aware", (1.0, 2.0), (8, 8), ((8, 16), (8, 16)), agg=16,
+                       conf=16, layer_input=1),
+                    st("sa", 8, "ctr-aware", layer_input=2, agg=16),
+                    st("vote", layer_input=3, vote_mlp=(8,)),
+                    st("sa", -1, "d-fps", (2.0, 4.0), (8, 8), ((16, 16), (16, 32)), agg=32,
+                       layer_input=2, ctr_input=4)),
+            cls_fc=(16,), reg_fc=(16,))
+    return iassd.IASSDConfig(num_classes=m.get("num_classes", 3),
+                             angle_bins=m.get("angle_bins", 12))
+
+
+def _point_det3d_build(module: str, config: Callable) -> Callable:
+    """PointRCNN and IA-SSD: (points, gt boxes, labels, validity) training
+    interface, no anchors."""
+
+    def build(cfg, generator, smoke=False, device=None):
+        import importlib
+
+        mod = importlib.import_module(f"metatransformer_tpu_torch.models.{module}")
+        device = _device.resolve(device)
+        mcfg = config(cfg, smoke)
+        params = mod.init(mcfg, generator, device)
+
+        def forward(p, x, gen):
+            x = batch_to_device(x, device)
+            return mod.training_loss(p, x["points"], x["gt_boxes"], x["gt_labels"], x["gt_valid"],
+                                     mcfg)[0]
+
+        return _det3d_recipe(params, forward, _SMOKE_RANGE if smoke else _KITTI_RANGE,
+                             mcfg.num_classes, smoke)
+
+    build.__name__ = f"build_{module}"
+    return build
+
+
+build_point_rcnn = _point_det3d_build("point_rcnn", point_rcnn_config)
+build_iassd = _point_det3d_build("iassd", iassd_config)
+
+
+def mdf_second_config(cfg, smoke: bool = False):
+    """The MDFSECONDConfig of the MDF Waymo + nuScenes YAML (one class, as
+    the reference's; or the smoke one)."""
+    from metatransformer_tpu_torch.models import mdf_detectors as md
+
+    m = cfg.model
+    return md.MDFSECONDConfig(
+        base=_smoke_second_cfg(1) if smoke else _full_second_cfg(m, num_classes=1),
+        num_datasets=m.get("num_datasets", 2), domain_attention=m.get("domain_attention", True),
+        reduction=4 if smoke else 8)
+
+
+def build_mdf_second(cfg, generator, smoke=False, device=None):
+    """MDF SECOND: two synthetic datasets drawn from seeds 1000 apart, one
+    merged loss ``weight_a * loss_a + weight_b * loss_b`` a step
+    (train_multi_db_merge_loss.py over the UniNorm backbone)."""
+    from metatransformer_tpu_torch.models import mdf_detectors as md
+    from metatransformer_tpu_torch.models import second
+
+    device = _device.resolve(device)
+    mcfg = mdf_second_config(cfg, smoke)
+    params = md.init(mcfg, generator, device)
+    anchors = torch.as_tensor(second.generate_anchors(mcfg.base), device=device)
+    wa, wb = cfg.train.get("weight_a", 1.0), cfg.train.get("weight_b", 1.0)
+
+    def forward(p, x, gen):
+        x = batch_to_device(x, device)
+        la, lb = (md.training_loss(p, x[k]["points"], x[k]["gt_boxes"], x[k]["gt_valid"], anchors,
+                                   mcfg, i)[0] for i, k in enumerate("ab"))
+        return wa * la + wb * lb
+
+    one = _det3d_synth(mcfg.base.pc_range, 1, 128 if smoke else 1024)
+
+    def synth(batch_size, n_batches, seed):
+        for a, b in zip(one(batch_size, n_batches, seed), one(batch_size, n_batches, seed + 1000)):
+            yield {"input": {"a": a["input"], "b": b["input"]}}
+
+    return Recipe(params, forward, synth, loss_fn=_identity_loss, classification=False,
+                  best_mode="min")
+
+
+def caddn_config(cfg, smoke: bool = False):
+    """The CaDDNConfig of the KITTI CaDDN YAML (or the smoke one)."""
+    from metatransformer_tpu_torch.models import caddn
+
+    m = cfg.model
+    if smoke:
+        return caddn.CaDDNConfig(
+            image_hw=(32, 64), depth_min=2.0, depth_max=10.0, num_bins=16, stem=(8, 16),
+            frustum_ch=8, pc_range=(2.0, -4.0, -2.0, 10.0, 4.0, 1.0), grid_size=(16, 16, 6),
+            bev_channels=(8, 16), up_channels=8, bev_layer_num=1)
+    return caddn.CaDDNConfig(depth_min=m.get("depth_min", 2.0), depth_max=m.get("depth_max", 46.8),
+                             num_bins=m.get("num_bins", 80))
+
+
+def _caddn_synth(mcfg):
+    """Images, a fixed front camera, uniform depth maps at the feature
+    stride with a central foreground box, and two car-sized ground truths
+    (the second padding), in the reference's draw order."""
+    h, w = mcfg.image_hw
+    hf, wf = mcfg.feat_hw
+    # lidar (x forward, y left, z up) -> camera (z forward, x right, y down)
+    l2c = np.zeros((4, 4), np.float32)
+    l2c[0, 1] = l2c[1, 2] = -1.0
+    l2c[2, 0] = l2c[3, 3] = 1.0
+    c2i = np.asarray([[w, 0, w / 2, 0], [0, w, h / 2, 0], [0, 0, 1, 0]], np.float32)
+    lo = np.asarray(mcfg.pc_range[:3])
+    span = np.asarray(mcfg.pc_range[3:]) - lo
+
+    def synth(batch_size, n_batches, seed):
+        rng = np.random.default_rng(seed)
+        for _ in range(n_batches):
+            ctr = (lo + span * rng.uniform(0.3, 0.7, (batch_size, 2, 3))).astype(np.float32)
+            size = np.broadcast_to(np.asarray([3.2, 1.6, 1.5], np.float32), ctr.shape)
+            yaw = rng.uniform(-0.3, 0.3, (batch_size, 2, 1)).astype(np.float32)
+            depth = rng.uniform(mcfg.depth_min, mcfg.depth_max, (batch_size, hf, wf)).astype(
+                np.float32)
+            fg = np.zeros((batch_size, hf, wf), bool)
+            fg[:, hf // 4:3 * hf // 4, wf // 4:3 * wf // 4] = True
+            yield {"input": {
+                "image": rng.uniform(0, 1, (batch_size, h, w, 3)).astype(np.float32),
+                "lidar_to_cam": np.broadcast_to(l2c, (batch_size, 4, 4)).copy(),
+                "cam_to_img": np.broadcast_to(c2i, (batch_size, 3, 4)).copy(),
+                "depth_maps": depth, "fg_mask": fg,
+                "gt_boxes": np.concatenate([ctr, size, yaw], -1),
+                "gt_valid": np.stack([np.ones(batch_size, bool), np.zeros(batch_size, bool)], 1),
+            }}
+
+    return synth
+
+
+def build_caddn(cfg, generator, smoke=False, device=None):
+    """KITTI CaDDN (the monocular camera detector: LID depth bins and the
+    frustum-to-voxel sample)."""
+    from metatransformer_tpu_torch.models import caddn
+
+    device = _device.resolve(device)
+    mcfg = caddn_config(cfg, smoke)
+    params = caddn.init(mcfg, generator, device)
+    anchors = torch.as_tensor(caddn.generate_anchors(mcfg), device=device)
+
+    def forward(p, x, gen):
+        x = batch_to_device(x, device)
+        return caddn.training_loss(p, x["image"], x["lidar_to_cam"], x["cam_to_img"],
+                                   x["depth_maps"], x["fg_mask"], x["gt_boxes"], x["gt_valid"],
+                                   anchors, mcfg)[0]
+
+    return Recipe(params, forward, _caddn_synth(mcfg), loss_fn=_identity_loss,
+                  classification=False, best_mode="min")
 
 
 # ---------------------------------------------------------------------------
@@ -1569,7 +1741,10 @@ DET3D_BUILDERS = {
     "SECONDIoU": _two_stage_builder("second_iou"),
     "CenterPoint": build_centerpoint,
     "CenterPointNusc": build_centerpoint,
-    **{name: _det3d_not_ported(name) for name in ("PointRCNN", "IASSD", "CaDDN", "MDFSECONDNet")},
+    "PointRCNN": build_point_rcnn,
+    "IASSD": build_iassd,
+    "CaDDN": build_caddn,
+    "MDFSECONDNet": build_mdf_second,
 }
 
 

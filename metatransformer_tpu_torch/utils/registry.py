@@ -8,8 +8,7 @@ configs instantiate by NAME + kwargs.
 The reference imports every shipped model family when the registry is
 imported. Here the built-in families are a table of module names that
 :meth:`Registry.get` imports on first use, so importing the registry
-imports no model. A family the port does not have yet raises
-``NotImplementedError`` naming its ROADMAP item instead of a ``KeyError``.
+imports no model. Every name the reference registers resolves.
 """
 
 from __future__ import annotations
@@ -18,7 +17,6 @@ import importlib
 import types
 from typing import Any, Callable, Dict, Optional, Tuple
 
-_ITEM_9 = "ROADMAP.md queue 1, item 9 (the task-zoo tail)"
 _MODELS_PKG = "metatransformer_tpu_torch.models."
 
 
@@ -28,8 +26,6 @@ class Registry:
         self._entries: Dict[str, Callable] = {}
         # name -> a callable that imports and returns the entry on first use
         self._lazy: Dict[str, Callable[[], Any]] = {}
-        # name -> the ROADMAP item of a family not ported yet
-        self._not_ported: Dict[str, str] = {}
 
     def register(self, name: Optional[str] = None):
         def deco(fn):
@@ -48,9 +44,6 @@ class Registry:
             self._entries.setdefault(name, entry)
         if name in self._entries:
             return self._entries[name]
-        if name in self._not_ported:
-            raise NotImplementedError(
-                f"{name!r} in registry {self.name} is not ported yet: {self._not_ported[name]}")
         raise KeyError(f"{name!r} not in registry {self.name}; known: {sorted(self.known())}")
 
     def build(self, cfg: Dict[str, Any], **extra):
@@ -119,6 +112,9 @@ def _register_builtins() -> None:
         "PartA2Net": "part_a2",  # part-aware two-stage detector (sparse UNet)
         "PVRCNNPlusPlus": "pv_rcnn_pp",  # SPC keypoints + VectorPool aggregation
         "CenterPoint": "centerpoint",  # anchor-free centre-heatmap detector
+        "PointRCNN": "point_rcnn",  # point-based two-stage detector
+        "IASSD": "iassd",  # instance-aware single-stage point detector
+        "CaDDN": "caddn",  # monocular camera detector (categorical depth)
         "MetaTransformerMultiView": "point_multiview",
     }
     MODELS._lazy.update({name: _module(mod) for name, mod in modules.items()})
@@ -130,6 +126,11 @@ def _register_builtins() -> None:
                                            Config="Mask2FormerSegmentorConfig"),
         "HTC": _namespace("htc", init="init", forward="forward_test",  # interleaved cascade
                           forward_train="forward_train", Config="HTCConfig"),
+        "MDFSECONDNet": _namespace("mdf_detectors", init="init",  # multi-dataset fusion
+                                   forward="forward", Config="MDFSECONDConfig"),
+        "MDFCenterPoint": _namespace("mdf_detectors", init="init_centerpoint",
+                                     forward="forward_centerpoint",
+                                     Config="MDFCenterPointConfig"),
     })
     # the families that register themselves when their module is imported
     hooks = {
@@ -146,8 +147,6 @@ def _register_builtins() -> None:
     }
     MODELS._lazy.update({name: _entry(mod, name) for mod, names in hooks.items()
                          for name in names})
-    MODELS._not_ported.update({name: _ITEM_9 for name in (
-        "PointRCNN", "IASSD", "CaDDN", "MDFSECONDNet", "MDFCenterPoint")})
 
 
 _register_builtins()

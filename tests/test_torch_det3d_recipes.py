@@ -1,17 +1,16 @@
-"""The port's ten 3D detection recipes (recipes.py: the KITTI PointPillars,
-SECOND, Voxel R-CNN, PV-RCNN, SECOND-IoU, Part-A2 and PV-RCNN++, and
-CenterPoint on KITTI, nuScenes and Waymo) against the JAX package's at
---smoke geometry on the CPU, FP32:
+"""The port's fourteen 3D detection recipes (recipes.py: the KITTI
+PointPillars, SECOND, Voxel R-CNN, PV-RCNN, SECOND-IoU, Part-A2, PV-RCNN++,
+PointRCNN, IA-SSD and CaDDN, CenterPoint on KITTI, nuScenes and Waymo, and
+MDF SECOND on Waymo + nuScenes) against the JAX package's at --smoke
+geometry on the CPU, FP32:
 
 - ``synth`` batches are bit-equal to JAX's;
 - the parameter trees have the same keys and shapes as the reference's
   init (traced for shapes only);
 - with the port's seeded weights (perturbed) given to both, ``forward``
-  (the training loss) matches at 1e-5;
-- a detector that ``recipes._two_stage_builder`` does not know raises
-  naming ROADMAP item 9.
+  (the training loss) matches at 1e-5.
 
-tests/test_torch_train_cli.py trains each of the ten one step through
+tests/test_torch_train_cli.py trains each of the fourteen one step through
 ``train_cli``.
 """
 
@@ -26,9 +25,13 @@ import torch
 
 from metatransformer_tpu import recipes as jrecipes
 from metatransformer_tpu.configs import load_config as jload_config
+from metatransformer_tpu.models import caddn as jcaddn
 from metatransformer_tpu.models import centerpoint as jcp
 from metatransformer_tpu.models import detector3d as jdet
+from metatransformer_tpu.models import iassd as jiassd
+from metatransformer_tpu.models import mdf_detectors as jmd
 from metatransformer_tpu.models import part_a2 as jpa
+from metatransformer_tpu.models import point_rcnn as jprc
 from metatransformer_tpu.models import pv_rcnn as jpv
 from metatransformer_tpu.models import pv_rcnn_pp as jpp
 from metatransformer_tpu.models import second as jsecond
@@ -38,6 +41,8 @@ from metatransformer_tpu_torch import recipes
 from metatransformer_tpu_torch.configs import CONFIG_DIR, load_config
 from metatransformer_tpu_torch.core import convert
 from metatransformer_tpu_torch.core.tree import leaves_with_path
+from metatransformer_tpu_torch.models import caddn
+from tests.test_torch_caddn import held_assignments, replaying
 from tests.test_torch_recipes import DET3D
 from tests.test_torch_vit_adapter import perturb
 
@@ -48,7 +53,9 @@ JAX_INIT = {"kitti_pointpillars.yaml": jdet, "kitti_second.yaml": jsecond,
             "kitti_voxel_rcnn.yaml": jvr, "kitti_pv_rcnn.yaml": jpv,
             "kitti_second_iou.yaml": jsi, "kitti_part_a2.yaml": jpa,
             "kitti_pv_rcnn_pp.yaml": jpp, "kitti_centerpoint.yaml": jcp,
-            "nuscenes_centerpoint.yaml": jcp, "waymo_centerpoint.yaml": jcp}
+            "nuscenes_centerpoint.yaml": jcp, "waymo_centerpoint.yaml": jcp,
+            "kitti_point_rcnn.yaml": jprc, "kitti_iassd.yaml": jiassd,
+            "kitti_caddn.yaml": jcaddn, "mdf_waymo_nusc_second.yaml": jmd}
 
 
 def _path(name):
@@ -103,23 +110,17 @@ def test_parameter_trees_have_the_same_keys_and_shapes(name):
 
 
 @pytest.mark.parametrize("name", DET3D)
-def test_forward_matches_jax(name):
+def test_forward_matches_jax(name, monkeypatch):
+    """CaDDN's anchor assignment meets exact ties (tests/test_torch_caddn.py):
+    the reference's is replayed, once the port's own is held to it."""
     jrec, rec, weights, _ = _pair(name)
     batch = next(iter(rec.synth(BATCH, 1, 5)))["input"]
+    if name == "kitti_caddn.yaml":
+        cfg = recipes.caddn_config(load_config(_path(name)), smoke=True)
+        replaying(monkeypatch, assignments=held_assignments(
+            caddn.generate_anchors(cfg), batch["gt_boxes"], batch["gt_valid"], cfg))
     want = jax.jit(jrec.forward)(jax.tree.map(jnp.asarray, weights),
                                  jax.tree.map(jnp.asarray, batch), jax.random.PRNGKey(1))
     got = rec.forward(convert.from_numpy(weights, "cpu"), batch, None)
     assert np.isfinite(float(want)) and float(want) > 0
     np.testing.assert_allclose(got.item(), float(want), rtol=LOSS_RTOL, atol=1e-6)
-
-
-@pytest.mark.parametrize("model", ["point_rcnn", "iassd", "caddn"])
-def test_unported_two_stage_detectors_raise_naming_item_9(model):
-    """All five two-stage detectors of ``recipes._TWO_STAGE_CONFIGS`` are
-    ported; ``_two_stage_builder`` of a KITTI detector still unported
-    raises naming item 9."""
-    assert model not in recipes._TWO_STAGE_CONFIGS
-    cfg = load_config(_path(f"kitti_{model}.yaml"))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 9"):
-        recipes._two_stage_builder(model)(cfg, torch.Generator().manual_seed(0), smoke=True,
-                                          device="cpu")

@@ -37,6 +37,32 @@ TOL = 1e-4
 CLASSES = 7
 
 
+def _host_lsa_on_host_arrays(cost, valid):
+    """The reference's ``_host_lsa`` on numpy copies of its arguments. On
+    this JAX a ``pure_callback`` hands its function ``jax.Array``s, and
+    ``_host_lsa`` indexes them: each index is a JAX dispatch from inside the
+    running callback, which can deadlock when the host is loaded. The
+    arrays become host arrays first; the assignment is the same."""
+    return _HOST_LSA(np.asarray(cost), np.asarray(valid))
+
+
+_HOST_LSA = jm2f._host_lsa
+
+
+@pytest.fixture(scope="module", autouse=True)
+def host_lsa_on_host_arrays():
+    """Every call of the reference's ``match`` in the module runs
+    :func:`_host_lsa_on_host_arrays`. ``pure_callback`` reads ``_host_lsa``
+    when it traces, so the patch is in place before the module's first trace
+    and the jit caches are cleared on both sides of it: no program traced
+    before (another module in the same worker) is reused."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jm2f, "_host_lsa", _host_lsa_on_host_arrays)
+        jax.clear_caches()
+        yield
+    jax.clear_caches()
+
+
 def head_cfgs(decoder_layers=3):
     """(JAX, port) Mask2Former configs of the smoke segmentor (dim 32)."""
     kw = dict(num_classes=CLASSES, head_channels=32, num_queries=8,

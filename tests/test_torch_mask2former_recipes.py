@@ -11,6 +11,7 @@ import torch
 
 from metatransformer_tpu.heads import mask2former as jm2f
 from metatransformer_tpu_torch.heads import mask2former as m2f
+from tests.test_torch_mask2former import host_lsa_on_host_arrays  # noqa: F401 (autouse)
 from tests.test_torch_mask2former import jax_loss_draws
 from tests.test_torch_segmentor import check_step, recipe_step
 

@@ -11,16 +11,17 @@ ported recipe YAML at --smoke geometry on the CPU:
 - ``loss_fn`` matches at 1e-5 on fixed arrays.
 
 The four COCO detection recipes are held in
-tests/test_torch_detection_recipes.py, the ten 3D ones (PointPillars,
-SECOND, Voxel R-CNN, PV-RCNN, SECOND-IoU, Part-A2, PV-RCNN++ and the three
-CenterPoint YAMLs) in tests/test_torch_det3d_recipes.py. The three
+tests/test_torch_detection_recipes.py, the fourteen 3D ones (PointPillars,
+SECOND, Voxel R-CNN, PV-RCNN, SECOND-IoU, Part-A2, PV-RCNN++, PointRCNN,
+IA-SSD, CaDDN, the three CenterPoint YAMLs and MDF SECOND) in
+tests/test_torch_det3d_recipes.py. The three
 point-zoo recipes (PointNeXt, CurveNet, SimpleView; FP32) and the five
 point-segmentation ones (RandLA-Net, BAAF-Net, PointTransformer,
 Stratified Transformer; FP32) are held here: synth, trees, and the first
 step's logits at 1e-4 (as the MAE losses) and loss at 1e-5, with the
-port's weights given to both (RandLA-Net with JAX's permutation). The 5
-YAMLs of families the port does not have raise NotImplementedError naming
-their ROADMAP item.
+port's weights given to both (RandLA-Net with JAX's permutation). The one
+YAML of a family the port does not have (the MoE image recipe) raises
+NotImplementedError naming its ROADMAP item.
 """
 
 import functools
@@ -44,6 +45,7 @@ from metatransformer_tpu_torch.core.tree import leaves_with_path
 from metatransformer_tpu_torch.heads import mask2former as m2f
 from metatransformer_tpu_torch.models import point_mae, video_pretrain
 from metatransformer_tpu_torch.train import step as step_lib
+from tests.test_torch_mask2former import host_lsa_on_host_arrays  # noqa: F401 (autouse)
 from tests.test_torch_mask2former import jax_loss_draws
 
 torch.set_num_threads(1)
@@ -64,22 +66,17 @@ PORTED = [
     "xray_chest_metatransformer.yaml",
 ]
 # the recipes still to port, by the ROADMAP item that names them
-UNPORTED = {
-    "imagenet_moe_metatransformer.yaml": "item 8",
-    **{name: "item 9" for name in (
-        "kitti_caddn.yaml", "kitti_iassd.yaml", "kitti_point_rcnn.yaml",
-        "mdf_waymo_nusc_second.yaml",
-    )},
-}
+UNPORTED = {"imagenet_moe_metatransformer.yaml": "item 8"}
 # the COCO detection recipes, held in tests/test_torch_detection_recipes.py
 DETECTION = ("coco_cascade_rcnn_metatransformer.yaml", "coco_htcpp_metatransformer.yaml",
              "coco_mask_rcnn_metatransformer.yaml",
              "coco_upgraded_mask_rcnn_metatransformer.yaml")
-# the 3D detection recipes (KITTI, and CenterPoint's nuScenes and Waymo),
-# held in tests/test_torch_det3d_recipes.py
-DET3D = ("kitti_centerpoint.yaml", "kitti_part_a2.yaml", "kitti_pointpillars.yaml",
-         "kitti_pv_rcnn.yaml", "kitti_pv_rcnn_pp.yaml", "kitti_second.yaml",
-         "kitti_second_iou.yaml", "kitti_voxel_rcnn.yaml", "nuscenes_centerpoint.yaml",
+# the 3D detection recipes (KITTI, CenterPoint's nuScenes and Waymo, MDF's
+# Waymo + nuScenes), held in tests/test_torch_det3d_recipes.py
+DET3D = ("kitti_caddn.yaml", "kitti_centerpoint.yaml", "kitti_iassd.yaml", "kitti_part_a2.yaml",
+         "kitti_point_rcnn.yaml", "kitti_pointpillars.yaml", "kitti_pv_rcnn.yaml",
+         "kitti_pv_rcnn_pp.yaml", "kitti_second.yaml", "kitti_second_iou.yaml",
+         "kitti_voxel_rcnn.yaml", "mdf_waymo_nusc_second.yaml", "nuscenes_centerpoint.yaml",
          "waymo_centerpoint.yaml")
 # the point-classification zoo's recipes (FP32), held below
 POINT_ZOO = ("modelnet40_curvenet.yaml", "modelnet40_pointnext.yaml",
@@ -119,9 +116,9 @@ def test_the_ported_list_is_exact():
     """Every shipped recipe is either ported or named unported: exact
     counts, so a new YAML or a newly ported family shows here."""
     every = sorted(n for n in os.listdir(CONFIG_DIR) if n.endswith(".yaml") and n != "default.yaml")
-    assert len(PORTED) == 28 and len(DETECTION) == 4 and len(DET3D) == 10
-    assert len(POINT_ZOO) == 3 and len(POINT_SEG) == 5 and len(UNPORTED) == 5
-    assert len(PORTED + list(DETECTION) + list(DET3D) + list(POINT_ZOO) + list(POINT_SEG)) == 50
+    assert len(PORTED) == 28 and len(DETECTION) == 4 and len(DET3D) == 14
+    assert len(POINT_ZOO) == 3 and len(POINT_SEG) == 5 and len(UNPORTED) == 1
+    assert len(PORTED + list(DETECTION) + list(DET3D) + list(POINT_ZOO) + list(POINT_SEG)) == 54
     assert sorted(PORTED + list(DETECTION) + list(DET3D) + list(POINT_ZOO) + list(POINT_SEG)
                   + list(UNPORTED)) == every
 

@@ -1,8 +1,7 @@
 """The port's model registry (utils/registry.py) against the JAX
 package's: every name the reference registers (its built-ins and the
-families whose modules register themselves) either resolves in the port
-or, for a family the port does not have yet, raises NotImplementedError
-naming ROADMAP item 9, never a KeyError. Importing the registry imports no
+families whose modules register themselves) resolves in the port, to an
+entry with the reference's functions. Importing the registry imports no
 model; a name resolves on first use."""
 
 import subprocess
@@ -31,15 +30,13 @@ def test_builtin_models_registered():
 
 @pytest.mark.parametrize("name", JAX_NAMES)
 def test_every_reference_name_resolves_or_names_its_item(name):
-    if name in MODELS:
-        entry, ref = MODELS.get(name), JMODELS.get(name)
-        for attr in ("init", "forward", "forward_train", "training_loss", "predict"):
-            assert hasattr(entry, attr) == hasattr(ref, attr), attr
-        if hasattr(ref, "Config"):
-            assert entry.Config.__name__ == ref.Config.__name__
-    else:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 9"):
-            MODELS.get(name)
+    """Every family is ported: no name is left to raise naming its item."""
+    assert name in MODELS
+    entry, ref = MODELS.get(name), JMODELS.get(name)
+    for attr in ("init", "forward", "forward_train", "training_loss", "predict"):
+        assert hasattr(entry, attr) == hasattr(ref, attr), attr
+    if hasattr(ref, "Config"):
+        assert entry.Config.__name__ == ref.Config.__name__
 
 
 def test_the_port_knows_no_name_the_reference_does_not():
