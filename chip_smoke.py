@@ -143,32 +143,57 @@ Phases (any failed check raises, so the process exits non-zero):
     logits against the plain versions, with the top-k, NMS keeps, RoI
     levels and top classes recorded from the plain run and replayed), one
     backward of the Mask R-CNN loss at b = 2 (12 launches each of #4-#6,
-    its assignments replayed too; peak memory), ``large_scale_jitter`` on
+    its assignments replayed too; its ground truths on the plain run's
+    first proposals, so the mask loss is positive and the mask head's
+    largest leaf's gradient is held beside the largest leaf's; peak
+    memory), ``large_scale_jitter`` on
     the card against the CPU at scales 0.3, 0.8, 1.7; the three forwards
     and the NMS loop timed at b = 2, median of 10 (``--profile``: by
     kernel, the idle share, the NMS loop's kernels and the share outside
     the 12 ViT blocks);
 13c. KITTI 3D detection at the YAMLs' full width (fp32, seeded weights):
-    the ops on a 16,384-point scan against the CPU (the voxel set in the
-    (41, 1600, 1408) grid, a submanifold, strided and inverse sparse conv:
-    active sets equal, features at 1e-4 of their scale; the rotated IoU and
-    NMS of 1024 boxes: keep set equal); ``forward`` and ``predict`` of
+    the ops on a 16,384-point scan against the CPU (the voxel
+    set in the (41, 1600, 1408) grid, a submanifold, strided and inverse
+    sparse conv: active sets equal, features at 1e-4 of their scale; the
+    rotated IoU and NMS of 1024 boxes: keep set equal); ``forward`` and ``predict`` of
     PointPillars, SECOND, Voxel R-CNN, PV-RCNN, SECOND-IoU, Part-A2 and
-    PV-RCNN++ at b = 1 on 16,384 points (PV-RCNN and PV-RCNN++, which
-    sample by FPS, also at b = 2 on 1,024 points, more samples than points;
-    ``--det3d``: every model at both), against the same code on the CPU,
+    PV-RCNN++ at b = 1 on 16,384 points (``--det3d``: also at b = 2 on
+    1,024 points, where the FPS models ask for more samples than points),
+    against the same code on the CPU,
     the voxel set, top-k,
     NMS keeps, grid-pool voxels, ball-group members, PV-RCNN++'s sector sets
     and VectorPool members recorded there and replayed (``_det3d_pins``);
     #7 launched once a PV-RCNN forward and 6 times (a sector each) a
-    PV-RCNN++ forward, the others none; one backward of each loss at b = 2
-    against the CPU (its assignments, RoI sampling and Part-A2's part
-    targets replayed too); #7 at PV-RCNN's (2, 1024, 2048) and
+    PV-RCNN++ forward, the others none; one backward of each loss at b = 1
+    (``--det3d``: 2) on 1,024 points
+    against the CPU's fp32 and a float64 run on the card (its assignments,
+    RoI sampling and Part-A2's part targets replayed too); #7 at PV-RCNN's (2, 1024, 2048) and
     (1, 16384, 2048) and PV-RCNN++'s (2, 1024, 682) and (1, 16384, 682)
     against its plain version; ``--det3d`` also times the forwards,
     predicts and NMS loops, median of 10, #7 at those shapes, and Part-A2's
     three 1x1 heads on cuDNN beside one matmul each (``--profile``: each
     predict's and NMS loop's device time by kernel);
+13c'. the KITTI evaluation path (``phase_det3d_eval``): four synthetic
+    KITTI frames (16,384-point velodyne scans, calib, label_2 with every
+    class at the three difficulties and DontCare) written and read back
+    with ``data/kitti_format``; PV-RCNN's ``predict`` at b = 2 twice against
+    the CPU with the choices replayed (#7 at (2, 16384, 2048));
+    ``data/kitti_eval.evaluate`` with its IoU matrices on the card against
+    the CPU's (within 1e-4; the CPU's value replayed where it lies within
+    1e-4 of a class threshold), the AP_R40 table equal, on those
+    predictions and with the objects' jittered boxes added; the Waymo,
+    nuScenes and ONCE metrics and weighted box fusion on them, and on the
+    ground truths as detections (AP 1, the boxes fused back);
+13c''. self-training (``phase_self_training``): one round of SemiPVRCNN
+    and SemiSECOND at KITTI width, b = 2 on 16,384-point scans (the
+    teacher's predict against the CPU, the pseudo boxes gated equal, one
+    Adam student step against the detector's plain step on the card, the
+    EMA teacher within one fp32 ulp; ``--self-training`` adds
+    SemiCenterPoint); ``multi_db.make_merged_step`` over MDF SECOND
+    against its recipe's loss; a PointContrast step over PointRCNN's
+    backbone at b = 2 on 4,096 points (``--self-training``: 16,384) against
+    the CPU, the views, pairs, ball members and gates replayed, #7
+    index-equal to the CPU's FPS at each stage;
 13d. the point-classification zoo at its default widths (fp32): each of
     the 13 families' forward at b = 8 on 1,024 points against a float64 run
     of the same code on the CPU (the two ViTs: its fp32 run), the kNN and
@@ -220,6 +245,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import statistics
 import subprocess
 import time
@@ -3624,13 +3650,43 @@ def _lsj_on_card(seed: int, dev) -> float:
     return worst
 
 
+DET_STEP_GT = 2  # ground truths an image of the held step, placed on the first proposals
+
+
+def _gt_on_proposals(params, cfg, images, gt: dict) -> dict:
+    """``gt`` with its boxes moved onto the first DET_STEP_GT proposals of
+    each image (the plain versions' first stage, NMS order) and each box's
+    mask filled inside it, so that RoIs of the held step reach the positive
+    IoU and the mask head takes a gradient (on the synthetic boxes no
+    proposal of a model at init reaches IoU 0.5: the mask loss is 0)."""
+    from metatransformer_tpu_torch.core import encoder as enc
+    from metatransformer_tpu_torch.models import mask_rcnn
+
+    with torch.no_grad(), _plain_versions():
+        proposals = mask_rcnn._forward_common(params, images, cfg, enc.BF16)[3]
+    boxes = torch.zeros_like(gt["gt_boxes"])
+    masks = torch.zeros_like(gt["gt_masks"])
+    for b in range(images.shape[0]):
+        keep = proposals[b][((proposals[b][:, 2:] - proposals[b][:, :2]) >= 8).all(-1)]
+        if len(keep) < DET_STEP_GT:
+            raise AssertionError(f"detection step: {len(keep)} proposals of 8 pixels or more")
+        boxes[b] = keep[:DET_STEP_GT]
+        for g in range(DET_STEP_GT):
+            x0, y0 = (int(v) + 1 for v in keep[g, :2].tolist())
+            x1, y1 = (int(v) for v in keep[g, 2:].tolist())
+            masks[b, g, y0:y1, x0:x1] = 1.0
+    return {**gt, "gt_boxes": boxes, "gt_masks": masks}
+
+
 def _detection_step(params, cfg, images, seed: int) -> dict:
     """The forward and backward of the Mask R-CNN loss at ``images``' batch
-    on a synthetic COCO batch of the recipe (2 boxes an image, their masks),
+    on a synthetic COCO batch of the recipe (2 boxes an image, their masks)
+    whose boxes sit on the plain run's first proposals (``_gt_on_proposals``),
     first with the plain versions recording the choices, then with the
     kernels replaying them, from the same weights: 12 launches each of #4,
-    #5 and #6 and no other; loss within LOSS_TOL, the gradient of the
-    largest leaf within GRAD_STEP_REL_L2; peak memory. Returns the
+    #5 and #6 and no other; loss within LOSS_TOL, the mask loss positive in
+    both runs, the gradients of the largest leaf and of the mask head's
+    largest leaf each within GRAD_STEP_REL_L2; peak memory. Returns the
     launches."""
     from metatransformer_tpu_torch import ops, recipes
     from metatransformer_tpu_torch.core import encoder as enc
@@ -3641,6 +3697,7 @@ def _detection_step(params, cfg, images, seed: int) -> dict:
     synth = recipes._detection_synth(img, cfg.rcnn.num_classes)
     gt = {k: torch.as_tensor(v).to(images.device)
           for k, v in next(iter(synth(b, 1, seed + 2)))["input"].items()}
+    gt = _gt_on_proposals(params, cfg, images, gt)
     pins = _detection_pins(train=True)
 
     def step():
@@ -3649,16 +3706,18 @@ def _detection_step(params, cfg, images, seed: int) -> dict:
             tree, images, gt["gt_boxes"], gt["gt_labels"], gt["gt_valid"], cfg,
             gt_masks=gt["gt_masks"], precision=enc.BF16)
         loss.backward()
-        path, leaf = _largest_leaf(tree)
-        return loss.item(), {k: round(v.item(), 5) for k, v in logs.items()}, path, leaf.grad
+        held = [_largest_leaf(tree), _largest_leaf({"rcnn": {k: tree["rcnn"][k] for k in
+                                                             ("mask_convs", "mask_out")}})]
+        return (loss.item(), {k: round(v.item(), 5) for k, v in logs.items()},
+                [(path, leaf.grad) for path, leaf in held])
 
     with _plain_versions(), pins.record():
-        ref_loss, ref_logs, _, ref_grad = step()
+        ref_loss, ref_logs, ref_grads = step()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     with pins.replay():
-        loss, logs, path, grad = step()
+        loss, logs, grads = step()
     torch.cuda.synchronize()
     launches = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
@@ -3667,12 +3726,17 @@ def _detection_step(params, cfg, images, seed: int) -> dict:
     want = {k: depth for k in FLASH_KERNELS}
     if launches != {k: want.get(k, 0) for k in launches}:
         raise AssertionError(f"detection step: launches {launches}, expected {want}")
-    rel_l2 = ((grad - ref_grad).norm() / ref_grad.norm()).item()
-    print(f"detection mask_rcnn step b={b}: loss {loss:.5f} against plain {ref_loss:.5f} (tol "
-          f"{LOSS_TOL}), terms {logs} (plain {ref_logs}); gradient of {'/'.join(map(str, path))} "
-          f"{tuple(grad.shape)} relative L2 {rel_l2:.4f} (max {GRAD_STEP_REL_L2}); peak memory "
-          f"{peak:.3f} GiB; launches {launches}", flush=True)
-    if abs(loss - ref_loss) > LOSS_TOL or not rel_l2 <= GRAD_STEP_REL_L2:
+    rel_l2 = [((g - r).norm() / r.norm()).item() for (_, g), (_, r) in zip(grads, ref_grads)]
+    held = "; ".join(f"gradient of {'/'.join(map(str, path))} {tuple(g.shape)} relative L2 "
+                     f"{e:.4f}" for (path, g), e in zip(grads, rel_l2))
+    print(f"detection mask_rcnn step b={b} (ground truths on the first {DET_STEP_GT} proposals): "
+          f"loss {loss:.5f} against plain {ref_loss:.5f} (tol {LOSS_TOL}), terms {logs} (plain "
+          f"{ref_logs}); {held} (max {GRAD_STEP_REL_L2}); peak memory {peak:.3f} GiB; launches "
+          f"{launches}", flush=True)
+    if not (logs["mask"] > 0 and ref_logs["mask"] > 0):
+        raise AssertionError(f"detection step: mask loss {logs['mask']} (plain "
+                             f"{ref_logs['mask']}), the mask head took no gradient")
+    if abs(loss - ref_loss) > LOSS_TOL or not max(rel_l2) <= GRAD_STEP_REL_L2:
         raise AssertionError("detection step differs from the plain versions")
     return launches
 
@@ -3827,16 +3891,20 @@ DET3D_FPS = {"pv_rcnn": 1, "pv_rcnn_pp": 6, "point_rcnn": 6, "iassd": 2}
 # SECOND (2 clouds of each dataset) their step's peak memory is set by the
 # batch (--det3d also times them)
 DET3D_YAML_BATCHES = {"point_rcnn": 2, "iassd": 8, "caddn": 4, "mdf_second": 2}
-# The CaDDN step against float64 on the CPU takes one image: its first BEV
-# conv gathers 1.5e9 patch elements an image, 12 GB in float64. MDF
-# SECOND's takes one cloud of each dataset (both datasets' affines in one
-# step, at half the float64 cost of two clouds each).
+# The CaDDN step takes one image: its first BEV conv gathers 1.5e9 patch
+# elements an image, 12 GB in float64. MDF SECOND's takes one cloud of each
+# dataset (both datasets' affines in one step).
 DET3D_STEP_BATCH = {"caddn": 1, "mdf_second": 1}
-# The default run holds every model on the scan, and the two that sample by
-# FPS also at (2, 1024), where they ask for more samples than a cloud has
-# points; --det3d holds and times every model at both cases.
-DET3D_SMOKE_CASES = {name: DET3D_CASES if name in DET3D_FPS else DET3D_CASES[:1]
-                     for name in DET3D_YAMLS}
+# The default run's other steps take one cloud of DET3D_CASES[1]'s points
+# (their fp32 CPU reference, which sets the gate, was 125 s of the phase at
+# two clouds); --det3d holds them at two.
+DET3D_SMOKE_STEP_BATCH = 1
+# The default run holds every model's forward and predict on the scan;
+# --det3d also at (2, 1024), where the FPS models ask for more samples than
+# a cloud has points (the default run's steps run on 1,024-point clouds,
+# PV-RCNN's keypoints at G > N among them, and #7 is held at those shapes
+# alone).
+DET3D_SMOKE_CASES = DET3D_CASES[:1]
 DET3D_NMS_BOXES = 1024  # proposal_pre / nms_pre
 # PV-RCNN's keypoints (G > N at 1024), then PV-RCNN++'s, 682 a sector
 DET3D_FPS_CASES = ((2, 1024, 2048), (1, 16384, 2048), (2, 1024, 682), (1, 16384, 682))
@@ -3855,8 +3923,9 @@ DET3D_FPS_CASES = ((2, 1024, 2048), (1, 16384, 2048), (2, 1024, 682), (1, 16384,
 DET3D_REL = 1e-4
 DET3D_BOX_ATOL = 1e-3
 DET3D_IOU_TOL = 1e-4
-# The training step's gradients are held against a float64 run on the CPU
-# with the same choices: the card's relative L2 distance from it, for the
+# The training step's gradients are held against a float64 run with the
+# same choices (on the card; the readings below were taken against one on
+# the CPU): the card's relative L2 distance from it, for the
 # whole tree and for each leaf, at most DET3D_LEAF_FACTOR times the CPU fp32
 # run's own, or DET3D_LEAF_REL. A leaf's fp32 gradient can stand well off
 # the exact one on either device (the CPU's PV-RCNN roi_0_a/b at 2.1e-3);
@@ -3871,6 +3940,14 @@ DET3D_IOU_TOL = 1e-4
 # of DET3D_LEAF_REL.
 DET3D_LEAF_FACTOR = 3
 DET3D_LEAF_REL = 1e-3
+# The float64 reference runs on the card, so a fault the card makes at both
+# precisions would pass the gate above. The CPU's fp32 gradient holds the
+# reference itself: it stands at most DET3D_LEAF_REL from it over the whole
+# tree and DET3D_LEAF_FACTOR x DET3D_LEAF_REL on each leaf. Against the CPU's
+# own float64 the CPU fp32 run stood 1.2e-7 to 1.2e-4 over the tree and 2.1e-3
+# on its furthest leaf (PV-RCNN's roi_0_a/b, b = 2).
+DET3D_CPU_TREE_MAX = DET3D_LEAF_REL
+DET3D_CPU_LEAF_MAX = DET3D_LEAF_FACTOR * DET3D_LEAF_REL
 
 
 class _ReplayedOn(_Replayed):
@@ -4171,10 +4248,11 @@ def _replayed_on_card(what: str, fn, params, x, expected: dict, dev, pins: _Repl
     return got, launches
 
 
-def _det3d_held(what: str, fn, params, cpu_params, x, expected: dict, dev) -> dict:
+def _det3d_held(what: str, fn, params, cpu_params, x, expected: dict, dev):
     """``fn(params, x)`` on the CPU recording the choices, then on the card
     replaying them (launches held to ``expected`` exactly); every output
-    against the CPU's. Returns the card run's launches."""
+    against the CPU's. Returns the card run's launches, its outputs and the
+    CPU's."""
     pins = _det3d_pins()
     with torch.no_grad(), pins.record():
         want = fn(cpu_params, x)
@@ -4183,7 +4261,7 @@ def _det3d_held(what: str, fn, params, cpu_params, x, expected: dict, dev) -> di
     print(f"{what}: " + ", ".join(f"{k} {tuple(want[k].shape)} {errs[k]:.3g}" for k in want)
           + f" (max |card - CPU|; launches { {k: v for k, v in launches.items() if v} })",
           flush=True)
-    return launches
+    return launches, got, want
 
 
 def _det3d_ops(seed: int, dev) -> None:
@@ -4248,18 +4326,25 @@ def _det3d_ops(seed: int, dev) -> None:
 
 
 def _grads_held(label: str, loss_fn, params, cpu_params, x: dict, dev, pins: _ReplayedOn,
-                expected: dict, zero_leaf: float = 0.0) -> dict:
+                expected: dict, zero_leaf: float = 0.0, cpu64: bool = False) -> dict:
     """One backward of ``loss_fn(params, x) -> (loss, logs)`` on the card
     against the CPU: the choices recorded by the CPU's fp32 run and replayed
-    by a float64 run on the CPU and by the card's (launches held to
-    ``expected``). The loss within DET3D_REL of the CPU's; the gradient tree
-    and each leaf within max(DET3D_LEAF_FACTOR x the CPU fp32 run's relative
-    L2 distance from float64, DET3D_LEAF_REL) of the float64 gradient; the
-    relative L2 to the CPU's fp32 gradient printed beside. A leaf whose
-    float64 gradient is below ``zero_leaf`` of the tree's (by norm) is zero
-    up to rounding and held by size instead: at most 10 x ``zero_leaf`` of
-    the tree on the card. Peak memory of the card's step. Returns the card's
-    launches."""
+    by a float64 run on the card and by the card's fp32 run (launches held
+    to ``expected``). The loss within DET3D_REL of the CPU's; the gradient
+    tree and each leaf within max(DET3D_LEAF_FACTOR x the CPU fp32 run's
+    relative L2 distance from float64, DET3D_LEAF_REL) of the float64
+    gradient, and the CPU fp32 run within DET3D_CPU_TREE_MAX (tree) and
+    DET3D_CPU_LEAF_MAX (leaf) of it; the relative L2 to the CPU's fp32
+    gradient printed beside. A leaf whose float64 gradient is below
+    ``zero_leaf`` of the tree's (by norm) is zero up to rounding and held by
+    size instead: at most 10 x ``zero_leaf`` of the tree on the card. Peak
+    memory of the card's step. With ``cpu64`` also a float64 run on the CPU,
+    and its distance from the card's printed. Returns the card's launches.
+
+    The float64 reference runs on the card: the card's and the CPU's
+    float64 gradients of the twelve 3D steps stood 4.0e-16 to 1.7e-8 apart
+    (tree, relative L2) where the CPU fp32 run stands 1.2e-7 to 1.2e-4 from
+    them, and the card takes a second where the CPU took 1 to 30."""
     from metatransformer_tpu_torch import ops
     from metatransformer_tpu_torch.core.tree import leaves_with_path, tree_map
 
@@ -4278,10 +4363,15 @@ def _grads_held(label: str, loss_fn, params, cpu_params, x: dict, dev, pins: _Re
 
     with pins.record():
         ref_loss, ref_grads = step(cpu_params, x)
-    with pins.replay():
-        loss64, grads64 = step(tree_map(f64, cpu_params), tree_map(f64, x))
-    pins.check(f"{label} step, float64 on the CPU")
+    if cpu64:
+        with pins.replay():
+            loss_cpu64, grads_cpu64 = step(tree_map(f64, cpu_params),
+                                           {k: f64(v) for k, v in x.items()})
+        pins.check(f"{label} step, float64 on the CPU")
     pins.to(dev)
+    with pins.replay():
+        loss64, grads64 = step(tree_map(f64, params), {k: f64(v.to(dev)) for k, v in x.items()})
+    pins.check(f"{label} step, float64 on the card")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
@@ -4305,7 +4395,7 @@ def _grads_held(label: str, loss_fn, params, cpu_params, x: dict, dev, pins: _Re
     leaves = [("the whole tree", torch.cat(card_all), torch.cat(cpu_all), torch.cat(f64_all))] + [
         ("/".join(map(str, p)), g, r, e)
         for (p, _), g, r, e in zip(grads, card_all, cpu_all, f64_all)]
-    worst, ratios, failed, zero = ("", 0.0, 0.0), [], [], []
+    worst, cpu_worst, ratios, failed, zero = ("", 0.0, 0.0), ("", 0.0), [], [], []
     tree_norm = leaves[0][3].norm().item()
     for leaf, g, ref, g64 in leaves:
         if g64.norm() < zero_leaf * tree_norm:  # a zero gradient up to rounding
@@ -4316,19 +4406,32 @@ def _grads_held(label: str, loss_fn, params, cpu_params, x: dict, dev, pins: _Re
         card, cpu = rel(g, g64), rel(ref, g64)
         if not card <= max(DET3D_LEAF_FACTOR * cpu, DET3D_LEAF_REL):
             failed.append(f"{leaf} {card:.3g} (CPU fp32 {cpu:.3g})")
+        if not cpu <= (DET3D_CPU_TREE_MAX if leaf == "the whole tree" else DET3D_CPU_LEAF_MAX):
+            failed.append(f"{leaf}: the card's float64 {cpu:.3g} from the CPU's fp32")
         if leaf != "the whole tree" and card > worst[1]:
             worst = (leaf, card, cpu)
+        if leaf != "the whole tree" and cpu > cpu_worst[1]:
+            cpu_worst = (leaf, cpu)
         if cpu > 0:
             ratios.append((card / cpu, leaf, card, cpu))
     ratios.sort(reverse=True)
     tree = leaves[0]
+    if cpu64:
+        cpu64_all = flat(grads_cpu64, ref_grads)
+        apart = max((rel(a, b), "/".join(map(str, p)))
+                    for (p, _), a, b in zip(grads, f64_all, cpu64_all))
+        print(f"{label} step: the card's float64 against the CPU's: loss "
+              f"{abs(loss64 - loss_cpu64):.3g} apart, the tree "
+              f"{rel(tree[3], torch.cat(cpu64_all)):.3g} relative L2, the leaf furthest "
+              f"{apart[1]} {apart[0]:.3g}", flush=True)
     print(f"{label} step b={next(iter(x.values())).shape[0]}: loss {loss:.6f} against the CPU's "
           f"{ref_loss:.6f} (float64 {loss64:.6f}); gradient relative L2 from float64: the tree "
           f"card {rel(tree[1], tree[3]):.3g}, CPU fp32 {rel(tree[2], tree[3]):.3g}; the leaf "
           f"furthest {worst[0]}: card {worst[1]:.3g}, CPU fp32 {worst[2]:.3g} (max "
           f"{DET3D_LEAF_FACTOR} x the CPU's or {DET3D_LEAF_REL}); the largest card / CPU ratios "
           f"{'; '.join(f'{lf} {q:.3g} ({c:.3g} / {u:.3g})' for q, lf, c, u in ratios[:3])}; "
-          f"card to CPU fp32 {rel(tree[1], tree[2]):.3g}; "
+          f"card to CPU fp32 {rel(tree[1], tree[2]):.3g}; the leaf furthest for the CPU fp32 "
+          f"{cpu_worst[0]} {cpu_worst[1]:.3g} (max {DET3D_CPU_LEAF_MAX}); "
           + (f"{len(zero)} leaves of zero gradient up to rounding {zero[:4]}; " if zero_leaf
              else "")
           + f"peak memory {peak:.3f} GiB; launches "
@@ -4338,17 +4441,19 @@ def _grads_held(label: str, loss_fn, params, cpu_params, x: dict, dev, pins: _Re
     return launches
 
 
-def _det3d_step(name, fns, params, cpu_params, x, dev) -> dict:
+def _det3d_step(name, fns, params, cpu_params, x, dev, full: bool) -> dict:
     """(d) One backward of the training loss on the card against the CPU
-    and float64 (``_grads_held``), the choices of ``_det3d_pins(train=True)``
-    replayed. Returns the card's launches."""
+    and float64 (``_grads_held``; with ``full`` also float64 on the CPU),
+    the choices of ``_det3d_pins(train=True)`` replayed. Returns the card's
+    launches."""
     expected = {"fps": DET3D_FPS[name]} if name in DET3D_FPS else {}
     # CenterPoint's head convs and CaDDN's image stem carry a bias ahead of a
     # GroupNorm: zero gradients up to rounding, held by size (``_grads_held``
     # ``zero_leaf``)
     return _grads_held(f"det3d {name}", fns[2], params, cpu_params, x, dev,
                        _det3d_pins(train=True), expected,
-                       zero_leaf=ZOO_ZERO_LEAF if name in ("centerpoint", "caddn") else 0.0)
+                       zero_leaf=ZOO_ZERO_LEAF if name in ("centerpoint", "caddn") else 0.0,
+                       cpu64=full)
 
 
 def _part_a2_head_times(params, cfg, dev, smi: str) -> dict:
@@ -4393,6 +4498,27 @@ def _part_a2_head_times(params, cfg, dev, smi: str) -> dict:
     return times
 
 
+def _fps_calls_held(label: str, calls, smi: str, full: bool, times: dict) -> None:
+    """#7 on each recorded input ``(points [B, N, 3], G)`` of a path index
+    for index against its plain version (``_check_fps``); with ``full``
+    also its time (a loop of TIMING_REPS launches) beside the plain
+    version's and the bound, into ``times``."""
+    from metatransformer_tpu_torch.ops import point_ops as po
+
+    for pts, g in calls:
+        what = f"{label} B={pts.shape[0]} N={pts.shape[1]} G={g}"
+        _check_fps(what, pts, g)
+        if full:
+            with torch.no_grad():
+                ms = _loop_ms(lambda: po.fps_cuda(pts, g))
+                plain = _median_ms(lambda: po.furthest_point_sample_plain(pts, g), 3)
+            bound = _fps_bound(pts.shape[0], pts.shape[1], g)
+            times[f"fps {what}"] = {"kernel": ms, "plain": plain, "bound": bound["bound_ms"]}
+            print(f"fps {what} ({smi}): {ms:.4f} ms a launch (loop of {TIMING_REPS}), plain "
+                  f"version {plain:.4f} ms, bound {bound['bound_ms']:.4f} ms "
+                  f"({bound['bound_by']})", flush=True)
+
+
 def _det3d_at_yaml_batch(name: str, cfg, params, fns, dev, seed: int, smi: str, full: bool,
                          profile: bool, times: dict) -> None:
     """One of DET3D_YAML_BATCHES' models at its YAML's batch on 16,384-point
@@ -4416,18 +4542,7 @@ def _det3d_at_yaml_batch(name: str, cfg, params, fns, dev, seed: int, smi: str, 
 
     with torch.no_grad(), mock.patch.object(po, "furthest_point_sample", record):
         fns[1](params, x)
-    for pts, g in calls:
-        what = f"{name} b={b} B={pts.shape[0]} N={pts.shape[1]} G={g}"
-        _check_fps(what, pts, g)
-        if full:
-            with torch.no_grad():
-                ms = _loop_ms(lambda: po.fps_cuda(pts, g))
-                plain = _median_ms(lambda: po.furthest_point_sample_plain(pts, g), 3)
-            bound = _fps_bound(pts.shape[0], pts.shape[1], g)
-            times[f"fps {what}"] = {"kernel": ms, "plain": plain, "bound": bound["bound_ms"]}
-            print(f"fps {what} ({smi}): {ms:.4f} ms a launch (loop of {TIMING_REPS}), plain "
-                  f"version {plain:.4f} ms, bound {bound['bound_ms']:.4f} ms "
-                  f"({bound['bound_by']})", flush=True)
+    _fps_calls_held(f"{name} b={b}", calls, smi, full, times)
     if not full:
         return
     tree = tree_map(lambda t: t.detach().requires_grad_(t.is_floating_point()), params)
@@ -4473,15 +4588,18 @@ def phase_det3d(seed: int, dev, profile: bool = False, full: bool = True, names=
     (DET3D_FPS_CASES) and at every shape PointRCNN and IA-SSD give it at
     their YAMLs' batches (``_det3d_at_yaml_batch``) index for index against
     its plain version; (d) one backward of each training loss at b = 2
-    (CaDDN 1) against the CPU and float64 (``_det3d_step``); (e) the
-    forwards, predicts and the NMS loop timed at each case (median of
-    DET_TIMING_REPS), DET3D_YAML_BATCHES' models also at their YAMLs'
-    batches with step times and peak memory, and under ``profile`` their
-    device time by kernel, idle share and the NMS loop's share of each
-    predict. Without ``full`` (the default run; ``--det3d`` is full) (b)
-    runs at DET3D_SMOKE_CASES and (c) and (e) take no times. ``names`` (a
-    subset of DET3D_YAMLS): only those models, without (a) and PV-RCNN(++)'s
-    shapes of (c). Returns the launches by path."""
+    (CaDDN and MDF SECOND 1) against the CPU and float64
+    (``_det3d_step``); (e) the forwards, predicts and the NMS loop timed at
+    each case (median of DET_TIMING_REPS), DET3D_YAML_BATCHES' models also
+    at their YAMLs' batches with step times and peak memory, and under
+    ``profile`` their device time by kernel, idle share and the NMS loop's
+    share of each predict. Without ``full`` (the default run; ``--det3d``
+    is full) (b) runs at DET3D_SMOKE_CASES, (d) at DET3D_SMOKE_STEP_BATCH,
+    and (c) and (e) take no times; (a) runs in both, the only hold of the
+    card's own voxel assignment and NMS decisions, which the models' holds
+    replay from the CPU. ``names`` (a subset of DET3D_YAMLS): only those
+    models, without (a) and PV-RCNN(++)'s shapes of (c). Returns the
+    launches by path."""
     from metatransformer_tpu_torch.core.tree import leaves, tree_map
     from metatransformer_tpu_torch.ops import iou3d
 
@@ -4499,16 +4617,17 @@ def phase_det3d(seed: int, dev, profile: bool = False, full: bool = True, names=
         fns = _det3d_fns(name, cfg, anchors)
         expected = {"fps": DET3D_FPS[name]} if name in DET3D_FPS else {}
         counts = []
-        cases = DET3D_CASES if full else DET3D_SMOKE_CASES[name]
+        cases = DET3D_CASES if full else DET3D_SMOKE_CASES
         for b, n in cases:
             pts = _det3d_inputs(name, _det3d_batch(cfg, b, n, seed + b))
             for kind, fn in (("forward", fns[0]), ("predict", fns[1])):
                 counts.append(_det3d_held(f"det3d {name} {kind} b={b} N={n}", fn, params,
-                                          cpu_params, pts, expected, dev))
+                                          cpu_params, pts, expected, dev)[0])
         launches[f"det3d_{name}"] = {k: sum(c[k] for c in counts) for k in counts[0]}
-        x = _det3d_batch(cfg, DET3D_STEP_BATCH.get(name, DET3D_CASES[1][0]), DET3D_CASES[1][1],
+        b_step = DET3D_CASES[1][0] if full else DET3D_SMOKE_STEP_BATCH
+        x = _det3d_batch(cfg, DET3D_STEP_BATCH.get(name, b_step), DET3D_CASES[1][1],
                          seed + 7)
-        launches[f"det3d_{name}_step"] = _det3d_step(name, fns, params, cpu_params, x, dev)
+        launches[f"det3d_{name}_step"] = _det3d_step(name, fns, params, cpu_params, x, dev, full)
         if name in DET3D_YAML_BATCHES and (full or name in DET3D_FPS):
             _det3d_at_yaml_batch(name, cfg, params, fns, dev, seed, smi, full, profile, times)
 
@@ -4572,6 +4691,614 @@ def phase_det3d(seed: int, dev, profile: bool = False, full: bool = True, names=
 
 
 # --------------------------------------------------------------------------
+# 3D evaluation: KITTI files -> PV-RCNN -> AP_R40, and the other metrics
+# --------------------------------------------------------------------------
+
+EVAL_FRAMES, EVAL_BATCH = 4, 2  # KITTI frames written and read back, scans a predict
+EVAL_POINTS = DET3D_CASES[0][1]
+# calib_2 of a KITTI frame (P2, R0_rect, Tr_velo_to_cam)
+KITTI_CALIB = (
+    "P2: 7.070493e+02 0.000000e+00 6.040814e+02 4.575831e+01 0.000000e+00 7.070493e+02 "
+    "1.805066e+02 -3.454157e-01 0.000000e+00 0.000000e+00 1.000000e+00 4.981016e-03\n"
+    "R0_rect: 9.999128e-01 1.009263e-02 -8.511932e-03 -1.012729e-02 9.999406e-01 -4.037671e-03 "
+    "8.470675e-03 4.123522e-03 9.999556e-01\n"
+    "Tr_velo_to_cam: 6.927964e-03 -9.999722e-01 -2.757829e-03 -2.457729e-02 -1.162982e-03 "
+    "2.749836e-03 -9.999955e-01 -6.127237e-02 9.999753e-01 6.931141e-03 -1.143899e-03 "
+    "-3.321029e-01\n")
+# (class, truncation, occlusion, 2D box height in pixels): each class at the
+# three difficulties (kitti_eval.DIFFICULTY), then a DontCare region
+KITTI_OBJECTS = [(cls, trunc, occ, height) for cls in ("Car", "Pedestrian", "Cyclist")
+                 for trunc, occ, height in ((0.0, 0, 60.0), (0.25, 1, 30.0), (0.45, 2, 26.0))
+                 ] + [("DontCare", -1.0, -1, 20.0)]
+KITTI_HWL = {"Car": (1.5, 1.6, 3.9), "Pedestrian": (1.7, 0.6, 0.8), "Cyclist": (1.7, 0.6, 1.7)}
+KITTI_CLASSES = ("Car", "Pedestrian", "Cyclist")  # the KITTI YAMLs' label ids 0, 1, 2
+
+
+def _kitti_frames(root: str, seed: int) -> list:
+    """EVAL_FRAMES synthetic KITTI frames under ``{root}/training``
+    (velodyne .bin of EVAL_POINTS points, a third of them inside the
+    objects, calib and label_2 .txt); -> their ids."""
+    from metatransformer_tpu_torch.data import kitti_format as kf
+
+    rng = np.random.default_rng(seed)
+    calib = kf.parse_calib(KITTI_CALIB)
+    ids = [f"{i:06d}" for i in range(EVAL_FRAMES)]
+    base = os.path.join(root, "training")
+    for sub in ("velodyne", "calib", "label_2"):
+        os.makedirs(os.path.join(base, sub))
+    for fid in ids:
+        rows = []
+        for j, (cls, trunc, occ, height) in enumerate(KITTI_OBJECTS):
+            h, w, l = KITTI_HWL.get(cls, (-1.0, -1.0, -1.0))
+            x, y, z = rng.uniform(-12, 12), 1.65, 6.0 + 5.5 * j + rng.uniform(-1, 1)
+            if cls == "DontCare":
+                x = y = z = -1000.0
+            top = rng.uniform(150, 200)
+            rows.append(f"{cls} {trunc:.2f} {occ} {rng.uniform(-3, 3):.2f} "
+                        f"{rng.uniform(0, 1000):.2f} {top:.2f} {rng.uniform(0, 1000):.2f} "
+                        f"{top + height:.2f} {h:.2f} {w:.2f} {l:.2f} {x:.2f} {y:.2f} {z:.2f} "
+                        f"{rng.uniform(-3.1, 3.1):.2f}")
+        text = "\n".join(rows) + "\n"
+        label = kf.parse_label(text)
+        boxes = kf.boxes_camera_to_lidar(
+            {k: v[label["name"] != "DontCare"] for k, v in label.items()}, calib)
+        inside = EVAL_POINTS // 3 // len(boxes)
+        pts = [np.concatenate([rng.uniform([0, -40, -3], [70.4, 40, 1],
+                                           (EVAL_POINTS - inside * len(boxes), 3)),
+                               rng.uniform(0, 1, (EVAL_POINTS - inside * len(boxes), 1))], 1)]
+        for box in boxes:
+            local = rng.uniform(-0.5, 0.5, (inside, 3)) * box[3:6]
+            c, s = np.cos(box[6]), np.sin(box[6])
+            xy = local[:, :2] @ np.asarray([[c, s], [-s, c]])
+            pts.append(np.concatenate([xy + box[:2], local[:, 2:] + box[2],
+                                       rng.uniform(0, 1, (inside, 1))], 1))
+        np.concatenate(pts).astype(np.float32).tofile(os.path.join(base, "velodyne",
+                                                                   f"{fid}.bin"))
+        with open(os.path.join(base, "calib", f"{fid}.txt"), "w") as f:
+            f.write(KITTI_CALIB)
+        with open(os.path.join(base, "label_2", f"{fid}.txt"), "w") as f:
+            f.write(text)
+    return ids
+
+
+def _kitti_predictions(dets: dict) -> list:
+    """A predict's stacked tensors -> kitti_eval's per-frame numpy dicts
+    (the valid rows, names by label id; a class-agnostic head's, as the
+    two-stage KITTI models' refinement, all cars)."""
+    out = []
+    host = {k: v.cpu().numpy() for k, v in dets.items()}
+    labels = host.get("labels", np.zeros(host["valid"].shape, np.int64))
+    for i in range(host["valid"].shape[0]):
+        keep = host["valid"][i]
+        out.append({"boxes": host["boxes"][i][keep], "scores": host["scores"][i][keep],
+                    "names": np.asarray(KITTI_CLASSES)[labels[i][keep]]})
+    return out
+
+
+def _with_oracle(preds: list, anns: list, seed: int) -> list:
+    """The predictions plus each scored object's box jittered as another
+    detection (scores in (0, 1)): where a model at init finds nothing, the
+    matcher and the IoUs still meet boxes that overlap."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for pred, ann in zip(preds, anns):
+        keep = ann.names != "DontCare"
+        boxes = ann.boxes[keep] + (rng.normal(0, 0.15, (int(keep.sum()), 7))
+                                   * [1, 1, 1, 0.3, 0.3, 0.3, 0.5]).astype(np.float32)
+        out.append({"boxes": np.concatenate([pred["boxes"], boxes]).astype(np.float32),
+                    "scores": np.concatenate([pred["scores"], rng.uniform(0.05, 1, len(boxes))
+                                              ]).astype(np.float32),
+                    "names": np.concatenate([pred["names"], ann.names[keep]])})
+    return out
+
+
+def _kitti_eval_held(what: str, preds: list, anns: list, dev) -> dict:
+    """``kitti_eval.evaluate`` with no device named (its IoU matrices on
+    the card) against the same predictions evaluated on the CPU: each IoU
+    matrix within DET3D_IOU_TOL of the CPU's, the CPU's value replayed where
+    it lies within DET3D_IOU_TOL of a class threshold (those counted), and
+    the AP table equal. Returns the table."""
+    from metatransformer_tpu_torch.data import kitti_eval as ke
+
+    iou = ke._iou_matrix
+    cpu_mats = []
+    with mock.patch.object(ke, "_iou_matrix",
+                           lambda p, g, m, d: cpu_mats.append(iou(p, g, m, d)) or cpu_mats[-1]):
+        want = ke.evaluate(preds, anns, device="cpu")
+    thresholds = sorted(set(ke.CLASS_IOU_THR.values()))
+    seen = {"calls": 0, "worst": 0.0, "edge": 0, "pairs": 0, "overlap": 0}
+
+    def on_card(p, g, metric, device):
+        if device.type != dev.type:
+            raise AssertionError(f"{what}: the IoU matrix ran on {device}")
+        got, ref = iou(p, g, metric, device), cpu_mats[seen["calls"]]
+        seen["calls"] += 1
+        near = np.zeros(ref.shape, bool)
+        for t in thresholds:
+            near |= np.abs(ref - t) <= DET3D_IOU_TOL
+        seen["worst"] = max(seen["worst"], float(np.abs(got - ref).max()) if ref.size else 0.0)
+        seen["edge"] += int(near.sum())
+        seen["pairs"] += ref.size
+        seen["overlap"] += int((ref > 0).sum())
+        return np.where(near, ref, got)
+
+    with mock.patch.object(ke, "_iou_matrix", on_card):
+        got = ke.evaluate(preds, anns)  # no device named: the card
+    torch.cuda.synchronize()
+    print(f"{what}: {seen['calls']} IoU matrices on the card, {seen['pairs']} pairs "
+          f"({seen['overlap']} overlapping), max |card - CPU| {seen['worst']:.3g} (tol "
+          f"{DET3D_IOU_TOL}), {seen['edge']} within the tolerance of a class threshold (the "
+          f"CPU's replayed); AP_R40 " + json.dumps({k: round(v, 4) for k, v in got.items()}),
+          flush=True)
+    if seen["calls"] != len(cpu_mats) or seen["worst"] > DET3D_IOU_TOL or got != want:
+        raise AssertionError(f"{what}: the card's evaluation differs from the CPU's: {got} "
+                             f"against {want}")
+    return got
+
+
+def _other_metrics_held(preds: list, frames: list, anns: list) -> None:
+    """The Waymo (L1, L2), nuScenes and ONCE metrics and weighted box
+    fusion on the predictions turned into their frames, printed; then on
+    the ground truths handed in as detections of score 1, where every class
+    with an object reaches AP (and APH) 1 at every level, nuScenes' TP
+    errors are 0, and the fusion of two copies of a frame's boxes gives
+    those boxes back."""
+    from metatransformer_tpu_torch.data import augmentor3d, nuscenes_eval, once_eval, waymo_eval
+    from metatransformer_tpu_torch.ops import box_fusion
+
+    ids = {c: i for i, c in enumerate(KITTI_CLASSES)}
+    gts, dets, truths, ngts, ndets, ntruths = [], [], [], [], [], []
+    for pred, frame, ann in zip(preds, frames, anns):
+        keep = ann.names != "DontCare"
+        boxes, labels = ann.boxes[keep].astype(np.float64), np.asarray(
+            [ids[n] for n in ann.names[keep]])
+        npts = np.asarray([augmentor3d.points_in_box(frame.points, b).sum() for b in boxes])
+        pl, ones = np.asarray([ids[n] for n in pred["names"]], np.int64), np.ones(len(labels))
+        gts.append(waymo_eval.WaymoFrame(boxes, labels, num_points=npts))
+        dets.append(waymo_eval.WaymoFrame(pred["boxes"].astype(np.float64), pl,
+                                          scores=pred["scores"]))
+        truths.append(waymo_eval.WaymoFrame(boxes, labels, scores=ones))
+        ngts.append(nuscenes_eval.NuscFrame(boxes, labels))
+        ndets.append(nuscenes_eval.NuscFrame(pred["boxes"].astype(np.float64), pl,
+                                             scores=pred["scores"]))
+        ntruths.append(nuscenes_eval.NuscFrame(boxes, labels, scores=ones))
+
+    got = {f"waymo_L{lv}": waymo_eval.evaluate(dets, gts, level=lv) for lv in (1, 2)}
+    got["nuscenes"] = nuscenes_eval.evaluate(ndets, ngts, classes=(0, 1, 2))
+    got["once"] = once_eval.evaluate(dets, gts)
+    half = [len(p["scores"]) // 2 for p in preds]
+    fused = box_fusion.weighted_box_fusion(
+        [p["boxes"][:h] for p, h in zip(preds, half)],
+        [p["scores"][:h] for p, h in zip(preds, half)],
+        [np.asarray([ids[n] for n in p["names"][:h]]) for p, h in zip(preds, half)])
+    # every object a detection of score 1; a Waymo level counts only the
+    # objects with points enough, so it gets those
+    masks = {lv: [waymo_eval._level_mask(g, lv) for g in gts] for lv in (1, 2)}
+    best = {f"waymo_L{lv}": waymo_eval.evaluate(
+        [waymo_eval.WaymoFrame(t.boxes[m], t.labels[m], scores=t.scores[m])
+         for t, m in zip(truths, masks[lv])], gts, level=lv) for lv in (1, 2)}
+    best["nuscenes"] = nuscenes_eval.evaluate(ntruths, ngts, classes=(0, 1, 2))
+    best["once"] = once_eval.evaluate(truths, gts)
+    every = [f"AP_class{c}" for c in sorted({int(c) for g in gts for c in g.labels})]
+    keys = {"nuscenes": every, "once": every}
+    for lv in (1, 2):
+        keys[f"waymo_L{lv}"] = [f"AP{h}_class{c}" for c in sorted(
+            {int(c) for g, m in zip(gts, masks[lv]) for c in g.labels[m]}) for h in ("", "H")]
+    off = [f"{k} {kk} {best[k][kk]}" for k in best for kk in keys[k]
+           if abs(best[k][kk] - 1.0) > 1e-12]
+    off += [f"nuscenes {k} {best['nuscenes'][k]}" for k in ("mATE", "mASE", "mAOE")
+            if best["nuscenes"][k] > 1e-9]
+    for g in gts:
+        b, sc, lb = box_fusion.weighted_box_fusion([g.boxes] * 2, [np.ones(len(g.labels))] * 2,
+                                                   [g.labels] * 2)
+        turn = np.abs((b[:, 6] - g.boxes[:, 6] + np.pi) % (2 * np.pi) - np.pi) if len(b) == len(
+            g.boxes) else None
+        if (turn is None or not np.array_equal(lb, g.labels) or np.abs(sc - 1).max() > 1e-6
+                or np.abs(b[:, :6] - g.boxes[:, :6]).max() > 1e-4 or turn.max() > 1e-5):
+            off.append(f"fusion of two copies of {len(g.boxes)} boxes gave {len(b)}")
+    print("det3d eval other metrics: " + json.dumps(
+        {k: {kk: round(vv, 4) for kk, vv in v.items()} for k, v in got.items()})
+        + f"; fusion of the first half of each frame's detections: {len(fused[0])} boxes; on "
+        f"the ground truths as detections ({sum(map(len, keys.values()))} APs held): "
+        + ("AP 1, TP errors 0, fusion returns the boxes" if not off else f"off: {off}"),
+        flush=True)
+    if off:
+        raise AssertionError(f"det3d eval: the metrics of the ground truths are not perfect: {off}")
+
+
+def phase_det3d_eval(seed: int, dev, profile: bool = False, full: bool = True) -> dict:
+    """The KITTI evaluation path end to end on the card: EVAL_FRAMES
+    synthetic frames written (``_kitti_frames``) and read back with
+    ``kitti_format.read_frame``, their labels turned into lidar boxes;
+    PV-RCNN's ``predict`` (KITTI width, seeded weights, no device named) at
+    b = EVAL_BATCH, twice, against the CPU with the choices replayed
+    (``_det3d_held``); ``kitti_eval.evaluate`` on the card against the CPU
+    (``_kitti_eval_held``) on those predictions with the objects'
+    jittered boxes added (``_with_oracle``); the Waymo, nuScenes,
+    ONCE metrics and box fusion on them (``_other_metrics_held``); #7 at
+    the predict's keypoint shape index for index against its plain version
+    (``full``, the flag's run: and timed). The phase's seconds and its card
+    peak memory; ``profile``: a predict's and an evaluation's device time
+    by kernel and idle share. Returns the launches by path."""
+    import tempfile
+
+    from metatransformer_tpu_torch.data import kitti_format as kf
+    from metatransformer_tpu_torch.core.tree import tree_map
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as root:
+        ids = _kitti_frames(root, seed)
+        frames = [kf.read_frame(root, fid) for fid in ids]
+    anns = [f.annotation() for f in frames]
+    cfg, anchors, params = _det3d_models(seed, ["pv_rcnn"])["pv_rcnn"]
+    cpu_params = tree_map(lambda t: t.cpu(), params)
+    predict = _det3d_fns("pv_rcnn", cfg, anchors)[1]
+    counts, preds = [], []
+    for i in range(0, EVAL_FRAMES, EVAL_BATCH):
+        pts = torch.as_tensor(np.stack([f.points for f in frames[i:i + EVAL_BATCH]]))
+        launches, got, _ = _det3d_held(
+            f"det3d eval pv_rcnn predict frames {ids[i]}-{ids[i + EVAL_BATCH - 1]} b={EVAL_BATCH}"
+            f" N={pts.shape[1]}", predict, params, cpu_params, pts, {"fps": DET3D_FPS["pv_rcnn"]},
+            dev)
+        counts.append(launches)
+        preds += _kitti_predictions(got)
+    n_gt = sum(int((a.names != "DontCare").sum()) for a in anns)
+    print(f"det3d eval: {EVAL_FRAMES} frames of {EVAL_POINTS} points, {n_gt} scored objects "
+          f"and {EVAL_FRAMES} DontCare read back; {sum(len(p['scores']) for p in preds)} "
+          f"detections", flush=True)
+    from metatransformer_tpu_torch.ops import point_ops as po
+
+    calls, fps = [], po.furthest_point_sample
+    with torch.no_grad(), mock.patch.object(po, "furthest_point_sample", lambda p, n: calls.append(
+            (p.detach().float().contiguous(), n)) or fps(p, n)):
+        predict(params, torch.as_tensor(np.stack([f.points for f in frames[:EVAL_BATCH]])).to(dev))
+    _fps_calls_held("det3d eval pv_rcnn keypoints", calls, _smi(), full, {})
+    oracle = _with_oracle(preds, anns, seed)
+    _kitti_eval_held("det3d eval kitti AP_R40 (PV-RCNN's detections and the objects' jittered "
+                     "boxes)", oracle, anns, dev)
+    _other_metrics_held(oracle, frames, anns)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if profile:
+        from metatransformer_tpu_torch.data import kitti_eval as ke
+
+        pts = torch.as_tensor(np.stack([f.points for f in frames[:EVAL_BATCH]])).to(dev)
+        with torch.no_grad():
+            _profile_step(lambda: predict(params, pts), f"det3d eval predict b={EVAL_BATCH}",
+                          top=12)
+        _profile_step(lambda: ke.evaluate(oracle, anns), "det3d eval kitti evaluate", top=8)
+    del params, cpu_params
+    torch.cuda.empty_cache()
+    print(f"phase_det3d_eval: {time.perf_counter() - t0:.1f} s, card peak memory {peak:.3f} GiB "
+          f"({_smi()})", flush=True)
+    return {"det3d_eval": {k: sum(c[k] for c in counts) for k in counts[0]}}
+
+
+# --------------------------------------------------------------------------
+# Self-training: the semi detectors' rounds, the merged MDF step, PointContrast
+# --------------------------------------------------------------------------
+
+SEMI_MODELS = ("pv_rcnn", "second")  # the default run's; --self-training adds centerpoint
+SEMI_MODELS_FULL = SEMI_MODELS + ("centerpoint",)
+SEMI_BATCH = 2
+SEMI_KEEP = 8  # boxes a scan the gate keeps: its threshold sits under the CPU's 8th best score
+SEMI_LR, SEMI_EMA = 1e-4, 0.999
+CONTRAST_POINTS, CONTRAST_POINTS_FULL = 4096, DET3D_CASES[0][1]
+CONTRAST_PAIRS, CONTRAST_BATCH = 256, 2
+# The PointContrast loss against the CPU's fp32: the bound of the tests'
+# loss parity (tests/test_torch_det3d_recipes.py LOSS_RTOL)
+LOSS_RTOL = 1e-5
+
+
+def _trainable(tree):
+    from metatransformer_tpu_torch.core.tree import tree_map
+
+    return tree_map(lambda t: t.detach().clone().requires_grad_(t.is_floating_point()), tree)
+
+
+def _grad_rel(label: str, grads, ref_grads) -> float:
+    """Relative L2 of two gradient lists, the whole tree and each leaf,
+    held at DET3D_LEAF_REL (a leaf whose reference is zero: zero). Returns
+    the tree's."""
+    def flat(gs):
+        return [torch.zeros(1) if g is None else g.detach().double().cpu().flatten() for g in gs]
+
+    a, b = flat(grads), flat(ref_grads)
+    whole = ((torch.cat(a) - torch.cat(b)).norm() / torch.cat(b).norm()).item()
+    worst = 0.0
+    for x, y in zip(a, b):
+        worst = max(worst, ((x - y).norm() / y.norm()).item() if y.norm() > 0
+                    else float((x != 0).any()))
+    if not (whole <= DET3D_LEAF_REL and worst <= DET3D_LEAF_REL):
+        raise AssertionError(f"{label}: gradient relative L2 {whole:.3g}, worst leaf {worst:.3g} "
+                             f"(max {DET3D_LEAF_REL})")
+    return whole
+
+
+def _semi_round(name: str, cfg, anchors, params, seed: int, dev, profile: bool) -> dict:
+    """One round of ``semi_detectors``' SemiPVRCNN / SemiSECOND /
+    SemiCenterPoint at KITTI width, b = SEMI_BATCH on DET3D_CASES[0]'s
+    scans: the teacher's predict on the card against the CPU, choices
+    replayed; ``gate_pseudo_boxes`` of the card's detections equal to its
+    gating of the CPU's (the threshold under the CPU's SEMI_KEEP-th score of
+    each scan; boxes at the predict's bounds, DET3D_BOX_ATOL plus DET3D_REL
+    of their size); one student step (Adam) on the pseudo boxes against the
+    detector's plain training loss on the same card and batch (the step of
+    ``phase_det3d``, held against float64 there), its choices recorded there
+    and replayed: loss within DET3D_REL, gradient at DET3D_LEAF_REL; the EMA
+    teacher against ``t * decay + s * (1 - decay)`` within one fp32 ulp;
+    ``profile``: the student step's device time by kernel and idle share.
+    Returns the launches (predict and step)."""
+    from metatransformer_tpu_torch import ops
+    from metatransformer_tpu_torch.core.tree import leaves, tree_map
+    from metatransformer_tpu_torch.models import semi_detectors as sd
+    from metatransformer_tpu_torch.train import detector_ssl, optim
+
+    make = {"pv_rcnn": lambda a: sd.semi_pv_rcnn(cfg, a),
+            "second": lambda a: sd.semi_second(cfg, a),
+            "centerpoint": lambda a: sd.semi_centerpoint(cfg)}[name]
+    semi_card, semi_cpu = make(anchors.to(dev)), make(anchors)
+    what = f"self-training Semi{name} b={SEMI_BATCH} N={DET3D_CASES[0][1]}"
+
+    def predict(p, x):
+        dets = (semi_card if x.is_cuda else semi_cpu).predict_fn(p, x)
+        return {k: torch.stack([d[k] for d in dets]) for k in dets[0]}
+
+    batch = _det3d_batch(cfg, SEMI_BATCH, DET3D_CASES[0][1], seed + 21)
+    expected = {"fps": DET3D_FPS[name]} if name in DET3D_FPS else {}
+    launches, got, want = _det3d_held(f"{what} teacher predict", predict, params,
+                                      tree_map(lambda t: t.cpu(), params), batch["points"],
+                                      expected, dev)
+    scores = np.sort(np.where(want["valid"].numpy(), want["scores"].numpy(), -1.0), -1)[:, ::-1]
+    thr = float(min((scores[:, SEMI_KEEP - 1] + scores[:, SEMI_KEEP]) / 2))
+    gate = detector_ssl.PseudoBoxConfig(score_thresh=thr, max_boxes=32)
+    split = lambda d: [{k: v[i] for k, v in d.items()} for i in range(SEMI_BATCH)]  # noqa: E731
+    boxes, labels, valid = detector_ssl.gate_pseudo_boxes(split(got), gate)
+    cboxes, clabels, cvalid = detector_ssl.gate_pseudo_boxes(split(want), gate)
+    box_err = np.abs(boxes - cboxes) - DET3D_REL * np.abs(cboxes)
+    if not (np.array_equal(valid, cvalid) and np.array_equal(labels, clabels)
+            and box_err.max() <= DET3D_BOX_ATOL):
+        raise AssertionError(f"{what}: the card's pseudo boxes differ from the CPU's gating: "
+                             f"valid {int((valid != cvalid).sum())}, labels "
+                             f"{int((labels != clabels).sum())} differ, boxes "
+                             f"{np.abs(boxes - cboxes).max():.3g} apart")
+    kept = valid.sum(-1).tolist()
+
+    x = {"points": batch["points"].to(dev), "gt_boxes": torch.as_tensor(boxes).to(dev),
+         "gt_valid": torch.as_tensor(valid).to(dev),
+         "gt_labels": torch.zeros(valid.shape, dtype=torch.int32, device=dev)}
+    plain_loss_fn = _det3d_fns(name, cfg, anchors)[2]
+    pins = _det3d_pins(train=True)
+    plain = _trainable(params)
+    ops.reset_launch_counts()
+    with pins.record():
+        ref_loss, _ = plain_loss_fn(plain, x)
+        ref_loss.backward()
+    torch.cuda.synchronize()
+    plain_launches = ops.launch_counts()
+    student, teacher = _trainable(params), tree_map(lambda t: t.detach().clone(), params)
+    spec = optim.make_optimizer("adam", SEMI_LR)
+    opt = spec.init(student)
+    step = semi_card.make_step(spec, SEMI_EMA)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t_step = time.perf_counter()
+    with pins.replay():
+        student, new_teacher, opt, loss, _ = step(student, teacher, opt, x["points"],
+                                                  x["gt_boxes"], x["gt_valid"])
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t_step
+    step_launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    pins.check(f"{what} student step")
+    for got_l, label in ((plain_launches, "plain step"), (step_launches, "student step")):
+        if {k: v for k, v in got_l.items() if v} != expected:
+            raise AssertionError(f"{what} {label}: launches {got_l}, expected {expected}")
+    if abs(loss.item() - ref_loss.item()) > DET3D_REL * max(1.0, abs(ref_loss.item())):
+        raise AssertionError(f"{what}: student loss {loss.item()} against {ref_loss.item()}")
+    rel = _grad_rel(f"{what} student step", [t.grad for t in leaves(student)],
+                    [t.grad for t in leaves(plain)])
+    ulp = 0.0
+    for t, s, n in zip(leaves(teacher), leaves(student), leaves(new_teacher)):
+        if not t.is_floating_point():
+            continue
+        want_t = t * SEMI_EMA + s.detach() * (1.0 - SEMI_EMA)
+        err = ((n - want_t).abs() / want_t.abs().clamp_min(torch.finfo(torch.float32).tiny))
+        ulp = max(ulp, err.max().item() / torch.finfo(torch.float32).eps)
+    print(f"{what}: gate at {thr:.6f} kept {kept} boxes a scan (card and CPU equal); student "
+          f"loss {loss.item():.6f} against the plain step's {ref_loss.item():.6f}, gradient "
+          f"relative L2 {rel:.3g} (max {DET3D_LEAF_REL}); EMA teacher within {ulp:.3g} fp32 ulp "
+          f"of t * {SEMI_EMA} + s * (1 - {SEMI_EMA}); step {step_s * 1e3:.1f} ms, peak memory "
+          f"{peak:.3f} GiB; launches {launches} + {step_launches}", flush=True)
+    if ulp > 1.0:
+        raise AssertionError(f"{what}: the EMA teacher is {ulp:.3g} ulp off")
+    if profile:
+        _profile_step(lambda: step(student, new_teacher, opt, x["points"], x["gt_boxes"],
+                                   x["gt_valid"]), f"{what} student step", top=12)
+    return {k: launches[k] + step_launches[k] for k in launches}
+
+
+def _merged_mdf_step(seed: int, dev, profile: bool) -> dict:
+    """``multi_db.make_merged_step`` over MDF SECOND's ``training_loss``
+    (b = 1 a dataset, the recipe's synthetic Waymo and nuScenes batches)
+    against the ``mdf_waymo_nusc_second`` recipe's loss on the same two
+    batches and weights, on the card, the choices recorded there and
+    replayed: loss within DET3D_REL, gradient at DET3D_LEAF_REL, every
+    stacked norm affine's rows of both datasets a gradient; ``profile``:
+    the step's device time by kernel and idle share. Returns the
+    launches."""
+    from metatransformer_tpu_torch import ops, recipes
+    from metatransformer_tpu_torch.configs import load_config
+    from metatransformer_tpu_torch.core.tree import leaves, leaves_with_path
+    from metatransformer_tpu_torch.models import mdf_detectors as md
+    from metatransformer_tpu_torch.models import second
+    from metatransformer_tpu_torch.train import multi_db, optim
+
+    yaml = load_config(_recipe_yaml(DET3D_YAMLS["mdf_second"]))
+    rec = recipes.build(yaml, torch.Generator().manual_seed(seed))  # no device named: the card
+    mcfg = recipes.mdf_second_config(yaml)
+    anchors = torch.as_tensor(second.generate_anchors(mcfg.base), device=dev)
+    x = {k: {kk: torch.as_tensor(vv).to(dev) for kk, vv in v.items()}
+         for k, v in next(iter(rec.synth(1, 1, seed + 5)))["input"].items()}
+    wa, wb = yaml.train.get("weight_a", 1.0), yaml.train.get("weight_b", 1.0)
+    pins = _det3d_pins(train=True)
+    ref = _trainable(rec.params)
+    with pins.record():
+        ref_loss = rec.forward(ref, x, None)
+        ref_loss.backward()
+
+    def loss_fn(p, batch, dataset_id, rng):
+        return md.training_loss(p, batch["points"], batch["gt_boxes"], batch["gt_valid"],
+                                anchors, mcfg, dataset_id)[0]
+
+    params = _trainable(rec.params)
+    spec = optim.make_optimizer("adam", SEMI_LR)
+    opt = spec.init(params)
+    step = multi_db.make_merged_step(loss_fn, spec, wa, wb)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with pins.replay():
+        params, opt, metrics = step(params, opt, x["a"], x["b"])
+    torch.cuda.synchronize()
+    step_s, peak = time.perf_counter() - t0, torch.cuda.max_memory_allocated() / 2**30
+    launches = ops.launch_counts()
+    pins.check("merged MDF step")
+    loss = metrics["loss"].item()
+    if abs(loss - ref_loss.item()) > DET3D_REL * max(1.0, abs(ref_loss.item())):
+        raise AssertionError(f"merged MDF step: loss {loss} against the recipe's {ref_loss.item()}")
+    rel = _grad_rel("merged MDF step", [t.grad for t in leaves(params)],
+                    [t.grad for t in leaves(ref)])
+    stacked = [(p, t.grad) for p, t in leaves_with_path(params) if p[-1] in md._STACKED_KEYS]
+    dead = [p for p, g in stacked if g is None or not all(g[i].abs().max() > 0 for i in range(2))]
+    print(f"self-training merged MDF step (b = 1 a dataset, weights {wa} / {wb}): loss {loss:.6f} "
+          f"(a {metrics['loss_a'].item():.6f}, b {metrics['loss_b'].item():.6f}) against the "
+          f"recipe's {ref_loss.item():.6f}; gradient relative L2 {rel:.3g} (max "
+          f"{DET3D_LEAF_REL}); {len(stacked) - len(dead)} of {len(stacked)} stacked norm affines "
+          f"with a gradient in both datasets' rows; step {step_s * 1e3:.1f} ms, peak memory "
+          f"{peak:.3f} GiB", flush=True)
+    if dead or not stacked:
+        raise AssertionError(f"merged MDF step: affines without both datasets' gradient {dead}")
+    if profile:
+        _profile_step(lambda: step(params, opt, x["a"], x["b"]), "self-training merged MDF step",
+                      top=12)
+    return launches
+
+
+def _contrast_step(seed: int, dev, n_points: int, full: bool, profile: bool) -> dict:
+    """``point_contrast.make_pretrain_step`` with PointRCNN's
+    ``pointnet2_msg`` per-point features (KITTI width) as ``feature_fn``, b =
+    CONTRAST_BATCH clouds of ``n_points``, CONTRAST_PAIRS pairs, on the card
+    against the CPU in fp32: the two views and the pairs drawn once on the
+    CPU and replayed, each FPS launch's indices equal to the CPU's (#7 index
+    for index at each stage's shape), the ball members, 3-NN and ReLU gates
+    recorded on the CPU and replayed. Loss within LOSS_RTOL, the gradient
+    at DET3D_LEAF_REL; #7 at each stage's input against its plain version
+    (``full``: and timed); ``profile``: the step's device time by kernel
+    and idle share. Returns the launches."""
+    from metatransformer_tpu_torch import ops
+    from metatransformer_tpu_torch.core.tree import leaves, tree_map
+    from metatransformer_tpu_torch.models import point_rcnn as prc
+    from metatransformer_tpu_torch.ops import point_ops as po
+    from metatransformer_tpu_torch.train import optim
+    from metatransformer_tpu_torch.train import point_contrast as pc
+
+    cfg = _det3d_cfgs(["point_rcnn"])["point_rcnn"]
+    params = prc.init(cfg, torch.Generator().manual_seed(seed))  # no device named: the card
+    pts = _det3d_batch(cfg, CONTRAST_BATCH, n_points, seed + 31)["points"]
+    g = torch.Generator().manual_seed(seed)
+    views = (pc.draw_view(CONTRAST_BATCH, "cpu", g), pc.draw_view(CONTRAST_BATCH, "cpu", g))
+    pairs = torch.randperm(n_points, generator=g)[:CONTRAST_PAIRS]
+
+    def feature_fn(p, x):
+        mask = torch.ones(x.shape[:2], dtype=torch.bool, device=x.device)
+        return prc.pointnet2_msg(p, x[..., :3].contiguous(), x[..., 3:], mask, cfg)
+
+    spec = optim.make_optimizer("adam", SEMI_LR)
+    step = pc.make_pretrain_step(feature_fn, spec, CONTRAST_PAIRS)
+    pins = _ReplayedOn(*_det3d_pins(train=True).targets, (pc, "augment_view"))
+    fps_cpu, fps_seen, fps_inputs = [], [], []
+    fps = po.masked_fps
+
+    def run(tree, x):
+        tree = _trainable(tree)
+        opt = spec.init(tree)
+        _, _, loss = step(tree, opt, x, views[0], views[1], pairs.to(x.device))
+        return loss.item(), [t.grad for t in leaves(tree)]
+
+    def fps_cpu_rec(points, mask, n):
+        fps_cpu.append(fps(points, mask, n))
+        return fps_cpu[-1]
+
+    def fps_card(points, mask, n):
+        idx = fps(points, mask, n)
+        ref = fps_cpu[len(fps_seen)].to(idx.device)
+        fps_seen.append((tuple(points.shape[:2]) + (n,), int((idx != ref).sum())))
+        fps_inputs.append((points.detach().float().contiguous(), n))  # every mask is full
+        return idx
+
+    with pins.record(), mock.patch.object(po, "masked_fps", fps_cpu_rec):
+        ref_loss, ref_grads = run(tree_map(lambda t: t.cpu(), params), pts)
+    pins.to(dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with pins.replay(), mock.patch.object(po, "masked_fps", fps_card):
+        loss, grads = run(params, pts.to(dev))
+    torch.cuda.synchronize()
+    step_s, peak = time.perf_counter() - t0, torch.cuda.max_memory_allocated() / 2**30
+    launches = ops.launch_counts()
+    pins.check("PointContrast step")
+    what = f"self-training PointContrast (PointRCNN backbone) b={CONTRAST_BATCH} N={n_points}"
+    bad = [s for s, d in fps_seen if d]
+    if len(fps_seen) != len(fps_cpu) or bad or launches["fps"] != len(fps_cpu):
+        raise AssertionError(f"{what}: #7 launches {launches['fps']} of {len(fps_cpu)}, "
+                             f"indices differing from the CPU's at {bad}")
+    if abs(loss - ref_loss) > LOSS_RTOL * max(1.0, abs(ref_loss)):
+        raise AssertionError(f"{what}: loss {loss} against the CPU's {ref_loss}")
+    rel = _grad_rel(what, grads, ref_grads)
+    # one view's four stages (the other view's are the same shapes)
+    _fps_calls_held("PointContrast PointRCNN backbone", fps_inputs[:len(fps_inputs) // 2],
+                    _smi(), full, {})
+    print(f"{what}: loss {loss:.7f} against the CPU's {ref_loss:.7f} (rtol {LOSS_RTOL}); "
+          f"gradient relative L2 {rel:.3g} (max {DET3D_LEAF_REL}); #7 index-equal at "
+          f"{sorted({s for s, _ in fps_seen})} ({len(fps_seen)} launches); step "
+          f"{step_s * 1e3:.1f} ms, peak memory {peak:.3f} GiB", flush=True)
+    if profile:
+        x = pts.to(dev)
+        _profile_step(lambda: run(params, x), f"{what} step", top=12)
+    return launches
+
+
+def phase_self_training(seed: int, dev, profile: bool = False, full: bool = True) -> dict:
+    """Self-training at KITTI width on the card, through the port's entry
+    points with no device named: one round of SemiPVRCNN and SemiSECOND
+    (``_semi_round``; ``full``: SemiCenterPoint too), the merged MDF step
+    (``_merged_mdf_step``) and a PointContrast step over PointRCNN's
+    backbone (``_contrast_step``, CONTRAST_POINTS points a cloud; ``full``
+    CONTRAST_POINTS_FULL). The phase's seconds; ``profile``: each step's
+    device time by kernel and idle share. Returns the launches by path."""
+    t0 = time.perf_counter()
+    launches = {}
+    names = SEMI_MODELS_FULL if full else SEMI_MODELS
+    for name, (cfg, anchors, params) in _det3d_models(seed, names).items():
+        launches[f"self_training_{name}"] = _semi_round(name, cfg, anchors, params, seed, dev,
+                                                        profile)
+        del params
+        torch.cuda.empty_cache()
+    launches["self_training_merged"] = _merged_mdf_step(seed, dev, profile)
+    torch.cuda.empty_cache()
+    n = CONTRAST_POINTS_FULL if full else CONTRAST_POINTS
+    launches["self_training_contrast"] = _contrast_step(seed, dev, n, full, profile)
+    torch.cuda.empty_cache()
+    print(f"phase_self_training: {time.perf_counter() - t0:.1f} s ({_smi()})", flush=True)
+    return launches
+
+
+# --------------------------------------------------------------------------
 # The point-classification zoo
 # --------------------------------------------------------------------------
 
@@ -4591,8 +5318,8 @@ ZOO_RECIPES = {"modelnet40_curvenet": "CurveNet", "modelnet40_pointnext": "Point
                "scanobjectnn_simpleview": "SimpleView"}
 # (seed offset, clouds) of the zoo's held steps: the default run holds one
 # at b = 8, as the forwards; --point-zoo three seeds at 8 and one at the
-# YAMLs' own 32, whose float64 CPU reference takes about 80 s of the three
-# families' (so the default run leaves it out; the gradients pass the same
+# YAMLs' own 32, whose CPU reference took about 80 s of the three
+# families' in float64 (so the default run leaves it out; the gradients pass the same
 # code at either batch, and the YAMLs train at 32 in phase_recipes)
 ZOO_STEPS = ((0, 8),)
 ZOO_STEPS_FULL = ((0, 8), (1, 8), (2, 8), (0, 32))
@@ -4733,8 +5460,8 @@ def phase_point_zoo(seed: int, dev, profile: bool = False, full: bool = True) ->
     """The point-classification zoo at its default (full) widths, fp32,
     through the registry (``utils/registry.MODELS``) with no device named:
     (a) each of the 13 families' forward at ZOO_CASE against the same code
-    on the CPU (``_zoo_held``: float64, the two ViTs, whose encoder is fp32
-    only, fp32), the choices of ``_zoo_pins`` recorded on the CPU and
+    on the CPU (``_zoo_held``: and float64 on the CPU, but for the two
+    ViTs, whose encoder is fp32 only), the choices of ``_zoo_pins`` recorded on the CPU and
     replayed; #7 launched ZOO_FPS times a forward, nothing else; the encoder
     route of PointViT and ViTGraph (T = 257, FP32) printed; each forward
     timed (median of TIMING_REPS; ``profile``: by kernel, the idle share);
@@ -4877,8 +5604,8 @@ def phase_point_seg(seed: int, dev, profile: bool = False, full: bool = True) ->
     """The point-segmentation baselines at their S3DIS YAMLs' widths (4,096
     points, 13 classes; PointTransformerSeg with 6 feature channels), fp32,
     through the registry with no device named: (a) each family's forward at
-    b = SEG_BATCH (``full``: also the YAML's batch) against a float64 run
-    on the CPU (``_zoo_held``), the choices of ``_seg_pins`` recorded on the
+    b = SEG_BATCH (``full``: also the YAML's batch) against the CPU and a
+    float64 run on the CPU (``_zoo_held``), the choices of ``_seg_pins`` recorded on the
     CPU and replayed; #7 launched SEG_FPS times a forward, nothing else;
     each forward timed (median of TIMING_REPS; ``profile``: by kernel, the
     idle share); (b) one backward of the per-point cross-entropy against
@@ -5542,6 +6269,15 @@ def main() -> None:
                          "baselines' forwards and steps against the CPU and float64 at b = 2 "
                          "and their YAMLs' batches, #7 at their shapes with times, and the "
                          "five segmentation recipes through train_cli; prints no result")
+    ap.add_argument("--det3d-eval", action="store_true",
+                    help="only build and run phase_det3d_eval: synthetic KITTI frames written and "
+                         "read back, PV-RCNN's predict on them against the CPU, kitti_eval with "
+                         "its IoU matrices on the card against the CPU, the Waymo, nuScenes and "
+                         "ONCE metrics and box fusion; prints no result")
+    ap.add_argument("--self-training", action="store_true",
+                    help="only build and run phase_self_training at its full size: SemiPVRCNN, "
+                         "SemiSECOND and SemiCenterPoint rounds, the merged MDF step and the "
+                         "PointContrast step on 16,384-point clouds; prints no result")
     ap.add_argument("--recipes", action="store_true",
                     help="only build and train every ported recipe YAML through train_cli "
                          "at full width (phase_recipes); prints no result")
@@ -5584,6 +6320,12 @@ def main() -> None:
         return
     if args.point_seg:
         phase_point_seg(args.seed, dev, args.profile)
+        return
+    if args.det3d_eval:
+        phase_det3d_eval(args.seed, dev, args.profile)
+        return
+    if args.self_training:
+        phase_self_training(args.seed, dev, args.profile)
         return
     errs = phase_kernels(args.seed, dev)
     phase_autograd(args.seed, dev)
@@ -5633,6 +6375,8 @@ def main() -> None:
     det3d_launches = phase_det3d(args.seed, dev, args.profile, full=False)
     zoo_launches = phase_point_zoo(args.seed, dev, args.profile, full=False)
     seg_launches = phase_point_seg(args.seed, dev, args.profile, full=False)
+    eval_launches = phase_det3d_eval(args.seed, dev, args.profile, full=False)
+    self_training_launches = phase_self_training(args.seed, dev, args.profile, full=False)
     recipe_launches, recipe_errs = phase_recipes(args.seed, dev, args.profile)
     for name, err in recipe_errs.items():
         errs[name] = max(errs[name], err)
@@ -5666,6 +6410,8 @@ def main() -> None:
         **det3d_launches,
         **zoo_launches,
         **seg_launches,
+        **eval_launches,
+        **self_training_launches,
         **recipe_launches,
     }
     on_path = {  # the kernels each path must have gone through
@@ -5715,6 +6461,12 @@ def main() -> None:
         # the segmenters run no encoder; three of them sample by FPS
         **{f"seg_{name}{part}": ("fps",) if name in SEG_FPS else ()
            for name in SEG_YAMLS for part in ("", "_step")},
+        # PV-RCNN's keypoints; the semi rounds launch what their detector's
+        # step does; PointContrast's PointRCNN backbone 4 a view
+        "det3d_eval": ("fps",),
+        **{f"self_training_{name}": ("fps",) if name in DET3D_FPS else ()
+           for name in SEMI_MODELS},
+        "self_training_merged": (), "self_training_contrast": ("fps",),
         **{f"recipes_{stem}": kinds for stem, kinds in RECIPE_KERNELS.items()},
         "recipes_imagenet_data": FUSED_KERNELS,
     }
